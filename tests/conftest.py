@@ -21,6 +21,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one; see README)"
+    )
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(42)

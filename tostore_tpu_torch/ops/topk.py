@@ -1,0 +1,454 @@
+"""Flat scan + top-k selection (counterpart of `tostore_tpu/ops/topk.py`).
+
+All paths share one algorithmic core: score a chunk of corpus rows, keep
+each chunk's per-lane top-2 (score, index) candidates (lane = row % 128),
+and merge the candidates with torch.topk. Dispatched by
+`flat_search(mode=...)`:
+
+  - `fused_flat_topk`: 2048-row blocks, per-lane top-2 folded into a
+    running per-lane top-T (B <= 32; kernel K1, csrc/lane_topk.cu) or
+    emitted per block (B > 32; kernel K2). On a CUDA tensor these launch
+    the hand-written Hopper kernels; on a CPU tensor they run their plain
+    PyTorch versions (`_fused_flat_topk_plain`, `_fused_block_emit_plain`),
+    which give the same candidates.
+  - `flat_topk_lane`: the same per-(chunk, lane) top-2 in plain PyTorch
+    (chunked matmul + per-lane argmax). The JAX package runs it in XLA
+    outside any kernel.
+  - `flat_topk_xla` (exact): chunked matmul + torch.topk, always exact.
+
+Exactness contract of the approximate paths: the true global top-k is
+recovered exactly unless more than 2 of the true top-k rows share one
+(chunk, lane) candidate bucket. `mode="auto"` uses them only for
+block-aligned corpora (N % 2048 == 0, D % 128 == 0, as the corpus always
+pads) with N >= MIN_FUSED_N; everything else, and `mode="exact"`, takes
+the exact path. `mode="fast"` is served by the `auto` dispatch: the JAX
+package's `fast` path needs the TPU's PartialReduce unit (approx_max_k),
+which the card does not have, and `auto` never misses more than `fast`
+promised.
+
+Scores are `alpha * row_scale_i * (q @ corpus.T)_i + bias_i`, higher is
+better (ops/distance.py has the per-metric encoding). Invalid and padded
+rows carry bias NEG_INF. f32 corpora are scored in true f32: callers keep
+TF32 off, as torch does by default.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _kernels
+from .runtime import LANE, NEG_INF, f32_dot, round_up, score_dtype
+
+DEFAULT_BLK_N = 2048
+MAX_BLK_B = 256
+# Candidates harvested per (lane, block): top-2 -> exact unless 3+ of the
+# true top-k share one (block, lane) bucket.
+CANDS_PER_LANE = 2
+# Running per-lane candidate depth accumulated across the whole corpus
+# (bounds the final candidate width to T*128 regardless of N).
+MAX_T_CANDS = 16
+# Corpus chunk of the exact path.
+EXACT_CHUNK = 65536
+# Corpus size below which the exact path is always used (bucket collisions
+# are likely at tiny N).
+MIN_FUSED_N = 64 * DEFAULT_BLK_N
+# The accumulating kernel (K1) serves query blocks up to this size.
+ACC_MAX_BLK_B = 32
+
+# Query rows per CTA of K1 and K2 (csrc/lane_topk.cu instantiates these):
+# K1 takes 8 when the padded batch is 8 (B <= 8, the latency case: no
+# padding rows scored or selected), else 16.
+ACC_TILE_B = (8, 16)
+EMIT_TILE_B = 32
+# CTAs launched per SM for a scan: the kernels fit two per SM (registers
+# and the shared-memory ring), so one wave covers the corpus.
+_CTAS_PER_SM = 2
+
+# Launches of each hand-written kernel, counted where the wrapper launches
+# it; a run reads them to show which kernels its path went through.
+LAUNCHES = {"lane_topk_acc": 0, "lane_topk_emit": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _topk_pad(flat_s, flat_i, k: int):
+    """Top-k over the candidate axis (flat_i None: the candidates are the
+    rows themselves); a k above the candidate width pads with NEG_INF /
+    index 0."""
+    kk = min(k, flat_s.shape[1])
+    top_s, pos = torch.topk(flat_s, kk, dim=1)
+    top_i = pos if flat_i is None else torch.gather(flat_i, 1, pos)
+    if kk < k:
+        top_s = torch.nn.functional.pad(top_s, (0, k - kk), value=NEG_INF)
+        top_i = torch.nn.functional.pad(top_i, (0, k - kk))
+    return top_s, top_i.long()
+
+
+def _scores(qc, cblk, bblk, sblk, alpha):
+    s = f32_dot(qc, cblk)
+    if sblk is not None:
+        s = s * sblk[None, :]
+    return alpha * s + bblk[None, :]
+
+
+# --------------------------------------------------------------------------
+# Exact path
+# --------------------------------------------------------------------------
+
+
+def flat_topk_xla(q, corpus, bias, alpha, k, row_scale=None):
+    """Exact scan. Chunks the corpus so peak memory stays ~[B, EXACT_CHUNK]
+    while torch.topk does the selection. Returns (scores [B, k] f32 desc,
+    idx [B, k] int64)."""
+    n = corpus.shape[0]
+    qc = q.to(score_dtype(corpus.dtype))
+    if n <= 2 * EXACT_CHUNK or n % EXACT_CHUNK != 0:
+        return _topk_pad(_scores(qc, corpus, bias, row_scale, alpha), None, k)
+    kk = min(k, EXACT_CHUNK)
+    parts_s, parts_i = [], []
+    for off in range(0, n, EXACT_CHUNK):
+        sl = slice(off, off + EXACT_CHUNK)
+        s = _scores(qc, corpus[sl], bias[sl],
+                    row_scale[sl] if row_scale is not None else None, alpha)
+        ts, ti = torch.topk(s, kk, dim=1)
+        parts_s.append(ts)
+        parts_i.append(ti + off)
+    return _topk_pad(torch.cat(parts_s, 1), torch.cat(parts_i, 1), k)
+
+
+# --------------------------------------------------------------------------
+# Per-lane candidates, plain PyTorch
+# --------------------------------------------------------------------------
+
+
+def _lane_top2(s, width: int, off: int = 0):
+    """Per-(group of `width` rows, lane) top-2 of a score tile.
+
+    s: [B, M] f32 with M % width == 0. Returns candidates [B, (M/width)*256]
+    laid out group-major, each group's lane tops first, then its seconds;
+    indices are row numbers (+ off). Ties go to the lower row, as the
+    reference's `v > best` sweep (argmax returns the first maximum)."""
+    b, m = s.shape
+    g, r = m // width, width // LANE
+    s4 = s.view(b, g, r, LANE)
+    a1 = s4.argmax(dim=2, keepdim=True)
+    m1 = s4.gather(2, a1)
+    s4b = s4.scatter(2, a1, NEG_INF)
+    a2 = s4b.argmax(dim=2, keepdim=True)
+    m2 = s4b.gather(2, a2)
+    base = torch.arange(g, device=s.device)[None, :, None] * width + off
+    lane = torch.arange(LANE, device=s.device)
+    g1 = base + a1.squeeze(2) * LANE + lane
+    g2 = base + a2.squeeze(2) * LANE + lane
+    cs = torch.stack([m1.squeeze(2), m2.squeeze(2)], dim=2).reshape(b, g * 2 * LANE)
+    ci = torch.stack([g1, g2], dim=2).reshape(b, g * 2 * LANE)
+    return cs, ci
+
+
+def _block_cands_plain(qp, corpus, bias, row_scale, alpha, blk_n):
+    """Every block's per-lane top-2: [B_pad, n_blocks*256], the layout K2
+    writes. Scored a chunk of whole blocks at a time to bound the tile."""
+    n = corpus.shape[0]
+    step = max(blk_n, ((1 << 25) // max(qp.shape[0], 1)) // blk_n * blk_n)
+    parts_s, parts_i = [], []
+    for off in range(0, n, step):
+        sl = slice(off, min(n, off + step))
+        s = _scores(qp, corpus[sl], bias[sl],
+                    row_scale[sl] if row_scale is not None else None, alpha)
+        cs, ci = _lane_top2(s, blk_n, off)
+        parts_s.append(cs)
+        parts_i.append(ci)
+    return torch.cat(parts_s, 1), torch.cat(parts_i, 1)
+
+
+def _running_top_t(cs, ci, t_cands: int):
+    """Per-lane top-T of the per-block candidates, as K1's bubble insert
+    leaves it: [B, n_blocks*256] -> [B, T*128] laid out t-major (t*128 +
+    lane). A stable descending sort in insertion order (block by block,
+    top then second) keeps the earlier of equal scores, like the insert;
+    lanes with fewer than T candidates keep NEG_INF / index 0."""
+    b = cs.shape[0]
+    nb = cs.shape[1] // (2 * LANE)
+    vs = cs.view(b, nb * 2, LANE).transpose(1, 2)  # [B, 128, n_blocks*2]
+    vi = ci.view(b, nb * 2, LANE).transpose(1, 2)
+    vs, order = torch.sort(vs, dim=2, descending=True, stable=True)
+    vi = torch.gather(vi, 2, order)
+    if nb * 2 >= t_cands:
+        vs, vi = vs[:, :, :t_cands], vi[:, :, :t_cands]
+    else:
+        pad = t_cands - nb * 2
+        vs = torch.nn.functional.pad(vs, (0, pad), value=NEG_INF)
+        vi = torch.nn.functional.pad(vi, (0, pad))
+    return (vs.transpose(1, 2).reshape(b, t_cands * LANE),
+            vi.transpose(1, 2).reshape(b, t_cands * LANE))
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers (K1, K2)
+# --------------------------------------------------------------------------
+
+
+def _check_kernel_inputs(qp, corpus, bias, row_scale, blk_n):
+    if corpus.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported corpus dtype {corpus.dtype}")
+    if qp.dtype != score_dtype(corpus.dtype):
+        raise TypeError(f"queries must be {score_dtype(corpus.dtype)}, got {qp.dtype}")
+    n, d = corpus.shape
+    if n % blk_n or d % LANE or blk_n % LANE:
+        raise ValueError(f"corpus must be block-padded: N={n} (blk {blk_n}), D={d}")
+    if qp.dim() != 2 or qp.shape[1] != d or qp.shape[0] % 8:
+        raise ValueError(f"queries must be [B_pad % 8 == 0, {d}], got {tuple(qp.shape)}")
+    if n >= 2**31:
+        raise ValueError("corpus rows must fit int32 indices")
+    tensors = [qp, corpus, bias] + ([row_scale] if row_scale is not None else [])
+    for t in tensors:
+        if t.device != corpus.device:
+            raise ValueError("all inputs must be on the corpus's device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("kernel inputs must be contiguous and 16-byte aligned")
+    for t in tensors[2:]:
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise ValueError(f"bias/row_scale must be float32 [{n}]")
+
+
+def _split_plan(corpus, n_blocks: int, b_tiles: int):
+    """Blocks per CTA so the grid holds about _CTAS_PER_SM CTAs per SM."""
+    sms = torch.cuda.get_device_properties(corpus.device).multi_processor_count
+    want = max(1, -(-sms * _CTAS_PER_SM // b_tiles))
+    per = max(1, -(-n_blocks // want))
+    return per, -(-n_blocks // per)
+
+
+def _lane_topk_acc_cuda(qp, corpus, bias, row_scale, alpha, blk_n, t_cands, k):
+    """K1 on the card: candidates [B_pad, W] whose top-k is the reference's.
+
+    Each split of the block range keeps its own per-lane top-T. For
+    k <= T the top-k of all splits' lists together is the top-k of the
+    per-lane top-T lists (a lane cannot hold more than k <= T of the
+    top-k), so the lists go to the final top-k as they are; for k > T the
+    splits are first merged per lane into the reference's per-lane top-T,
+    laid out t-major as the Pallas kernel emits it."""
+    _check_kernel_inputs(qp, corpus, bias, row_scale, blk_n)
+    b_pad, d = qp.shape
+    n_blocks = corpus.shape[0] // blk_n
+    tile_b = ACC_TILE_B[0] if b_pad <= ACC_TILE_B[0] else ACC_TILE_B[1]
+    per, splits = _split_plan(corpus, n_blocks, -(-b_pad // tile_b))
+    out_s = torch.empty((b_pad, splits * t_cands, LANE), dtype=torch.float32,
+                        device=corpus.device)
+    out_i = torch.empty((b_pad, splits * t_cands, LANE), dtype=torch.int32,
+                        device=corpus.device)
+    lib = _kernels.library()
+    with torch.cuda.device(corpus.device):
+        err = lib.lane_topk_acc(
+            qp.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
+            bias.data_ptr(), row_scale.data_ptr() if row_scale is not None else None,
+            float(alpha), b_pad, d, blk_n, n_blocks, per, splits, tile_b, t_cands,
+            out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(corpus.device).cuda_stream,
+        )
+    _kernels.check("lane_topk_acc", err)
+    LAUNCHES["lane_topk_acc"] += 1
+    if k > t_cands and splits > 1:
+        out_s, pos = torch.topk(out_s, t_cands, dim=1)
+        out_i = torch.gather(out_i, 1, pos)
+    return out_s.reshape(b_pad, -1), out_i.reshape(b_pad, -1)
+
+
+def _lane_topk_emit_cuda(qp, corpus, bias, row_scale, alpha, blk_n):
+    """K2 on the card: every block's per-lane top-2, [B_pad, n_blocks*256]."""
+    _check_kernel_inputs(qp, corpus, bias, row_scale, blk_n)
+    b_pad, d = qp.shape
+    n_blocks = corpus.shape[0] // blk_n
+    per, splits = _split_plan(corpus, n_blocks, -(-b_pad // EMIT_TILE_B))
+    cw = n_blocks * CANDS_PER_LANE * LANE
+    out_s = torch.empty((b_pad, cw), dtype=torch.float32, device=corpus.device)
+    out_i = torch.empty((b_pad, cw), dtype=torch.int32, device=corpus.device)
+    lib = _kernels.library()
+    with torch.cuda.device(corpus.device):
+        err = lib.lane_topk_emit(
+            qp.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
+            bias.data_ptr(), row_scale.data_ptr() if row_scale is not None else None,
+            float(alpha), b_pad, d, blk_n, n_blocks, per, splits,
+            out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(corpus.device).cuda_stream,
+        )
+    _kernels.check("lane_topk_emit", err)
+    LAUNCHES["lane_topk_emit"] += 1
+    return out_s, out_i
+
+
+# --------------------------------------------------------------------------
+# Fused paths (K1 / K2 and their plain versions)
+# --------------------------------------------------------------------------
+
+
+def _pad_queries(q, blk_b: int, corpus_dtype):
+    b = q.shape[0]
+    b_pad = round_up(b, blk_b)
+    q = q.to(score_dtype(corpus_dtype))
+    if b_pad != b:
+        q = torch.nn.functional.pad(q, (0, 0, 0, b_pad - b))
+    return q.contiguous()
+
+
+def _acc_plan(q, corpus, k, blk_n):
+    """(blk_n, blk_b, t_cands, use_emit) as the reference picks them
+    (topk.py:523-548)."""
+    b, d = q.shape
+    n = corpus.shape[0]
+    if blk_n is None:
+        blk_n = (
+            4096
+            if round_up(b, 8) > ACC_MAX_BLK_B and n % 4096 == 0
+            else DEFAULT_BLK_N
+        )
+    if n % blk_n != 0 or d % LANE != 0:
+        raise ValueError(f"corpus must be block-padded: N={n} (blk {blk_n}), D={d}")
+    blk_b = min(MAX_BLK_B, round_up(b, 8))
+    t_cands = min(
+        MAX_T_CANDS if blk_b <= 64 else 8,
+        max(CANDS_PER_LANE, round_up(min(k, 16), 8)),
+    )
+    return blk_n, blk_b, t_cands, round_up(b, 8) > ACC_MAX_BLK_B
+
+
+def fused_flat_topk(q, corpus, bias, *, k: int, alpha: float = 1.0,
+                    blk_n: int | None = None, row_scale=None):
+    """Fused flat scan: returns (scores [B, k] f32 desc, idx [B, k] int64).
+
+    q: [B, D] float; corpus: [N, D] (N % blk_n == 0, D % 128 == 0);
+    bias: [N] f32 with NEG_INF on invalid/padded rows. B <= 32 runs K1
+    (running per-lane top-T); B > 32 runs K2 (`_fused_block_emit`).
+    On a CPU tensor this is `_fused_flat_topk_plain`."""
+    blk_n, blk_b, t_cands, emit = _acc_plan(q, corpus, k, blk_n)
+    if emit:
+        return _fused_block_emit(q, corpus, bias, k=k, alpha=alpha, blk_n=blk_n,
+                                 row_scale=row_scale)
+    if not corpus.is_cuda:
+        return _fused_flat_topk_plain(q, corpus, bias, k=k, alpha=alpha,
+                                      blk_n=blk_n, row_scale=row_scale)
+    qp = _pad_queries(q, blk_b, corpus.dtype)
+    cs, ci = _lane_topk_acc_cuda(qp, corpus, bias, row_scale, alpha, blk_n, t_cands, k)
+    top_s, top_i = _topk_pad(cs, ci, k)
+    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+
+
+def _fused_flat_topk_plain(q, corpus, bias, *, k: int, alpha: float = 1.0,
+                           blk_n: int | None = None, row_scale=None):
+    """Plain PyTorch version of K1 with the same candidates: per-block
+    per-lane top-2, then the per-lane running top-T, then top-k."""
+    blk_n, blk_b, t_cands, _ = _acc_plan(q, corpus, k, blk_n)
+    qp = _pad_queries(q, blk_b, corpus.dtype)
+    cs, ci = _block_cands_plain(qp, corpus, bias, row_scale, alpha, blk_n)
+    cs, ci = _running_top_t(cs, ci, t_cands)
+    top_s, top_i = _topk_pad(cs, ci, k)
+    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+
+
+def _fused_block_emit(q, corpus, bias, *, k, alpha, blk_n, row_scale=None):
+    """Per-block candidate emission (K2) + torch.topk merge over
+    [B, n_blocks*256]. On a CPU tensor this is `_fused_block_emit_plain`."""
+    if not corpus.is_cuda:
+        return _fused_block_emit_plain(q, corpus, bias, k=k, alpha=alpha,
+                                       blk_n=blk_n, row_scale=row_scale)
+    qp = _pad_queries(q, min(MAX_BLK_B, round_up(q.shape[0], 8)), corpus.dtype)
+    cs, ci = _lane_topk_emit_cuda(qp, corpus, bias, row_scale, alpha, blk_n)
+    top_s, top_i = _topk_pad(cs, ci, k)
+    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+
+
+def _fused_block_emit_plain(q, corpus, bias, *, k, alpha, blk_n, row_scale=None):
+    """Plain PyTorch version of K2 with the same candidates."""
+    if corpus.shape[0] % blk_n or corpus.shape[1] % LANE:
+        raise ValueError(f"corpus must be block-padded: N={corpus.shape[0]} (blk {blk_n})")
+    qp = _pad_queries(q, min(MAX_BLK_B, round_up(q.shape[0], 8)), corpus.dtype)
+    cs, ci = _block_cands_plain(qp, corpus, bias, row_scale, alpha, blk_n)
+    top_s, top_i = _topk_pad(cs, ci, k)
+    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+
+
+# --------------------------------------------------------------------------
+# Lane-candidate path in plain PyTorch (the auto path for B > 32)
+# --------------------------------------------------------------------------
+
+# score-chunk budget: CH ~ 8M elements / B, clamped
+_LANE_CH_MIN = 16384
+_LANE_CH_MAX = 131072
+
+
+def _lane_chunk_for(b: int, n: int) -> int:
+    target = max(_LANE_CH_MIN, min(_LANE_CH_MAX, (8 << 20) // max(b, 1)))
+    # bucket-count floor: at least ~16 chunks so candidate buckets stay
+    # >= 2048 and the top-k miss probability stays negligible
+    target = max(_LANE_CH_MIN, min(target, ((n // 16) // LANE) * LANE))
+    # prefer a 128-aligned divisor of n near the target
+    best = None
+    lo, hi = max(LANE, target // 2), target * 2
+    cand = (target // LANE) * LANE
+    for delta in range(0, hi - lo, LANE):
+        for c in (cand - delta, cand + delta):
+            if lo <= c <= hi and c > 0 and n % c == 0:
+                best = c
+                break
+        if best:
+            return best
+    # no divisor: round target down to a power-of-two multiple of the min
+    ch = _LANE_CH_MIN
+    while ch * 2 <= target:
+        ch *= 2
+    return ch
+
+
+def flat_topk_lane(q, corpus, bias, *, k: int, alpha: float = 1.0,
+                   ch: int | None = None, row_scale=None):
+    """Lane-candidate flat scan: per-(chunk, lane) top-2 over chunks of
+    `ch` rows, then torch.topk. No alignment requirements: the remainder
+    after CH-chunking is scanned separately, padded to 128 rows with
+    NEG_INF bias."""
+    b = q.shape[0]
+    n = corpus.shape[0]
+    if ch is None:
+        ch = _lane_chunk_for(b, n)
+    qc = q.to(score_dtype(corpus.dtype))
+    nch = n // ch
+    rem = n - nch * ch
+    parts_s, parts_i = [], []
+    for off in range(0, nch * ch, ch):
+        sl = slice(off, off + ch)
+        s = _scores(qc, corpus[sl], bias[sl],
+                    row_scale[sl] if row_scale is not None else None, alpha)
+        cs, ci = _lane_top2(s, ch, off)
+        parts_s.append(cs)
+        parts_i.append(ci)
+    if rem:
+        off = nch * ch
+        s = _scores(qc, corpus[off:], bias[off:],
+                    row_scale[off:] if row_scale is not None else None, alpha)
+        rpad = round_up(rem, LANE)
+        if rpad != rem:
+            s = torch.nn.functional.pad(s, (0, rpad - rem), value=NEG_INF)
+        cs, ci = _lane_top2(s, rpad, off)
+        parts_s.append(cs)
+        parts_i.append(ci)
+    return _topk_pad(torch.cat(parts_s, 1), torch.cat(parts_i, 1), k)
+
+
+def flat_search(q, corpus, bias, *, k: int, alpha: float = 1.0,
+                mode: str = "auto", row_scale=None):
+    """Dispatch:
+      auto:  B <= 32  -> K1 (fused_flat_topk, running per-lane top-T);
+             B > 32   -> lane-candidate scan in plain PyTorch;
+             small N or huge k -> exact chunked path.
+      'fused' forces fused_flat_topk (K1, or K2 for B > 32); 'exact' forces
+      the chunked exact scan; 'fast' is served as 'auto' (module
+      docstring)."""
+    n, d = corpus.shape
+    aligned = n % DEFAULT_BLK_N == 0 and d % LANE == 0
+    approx_ok = aligned and k <= CANDS_PER_LANE * LANE
+    if mode == "fused":
+        return fused_flat_topk(q, corpus, bias, k=k, alpha=alpha, row_scale=row_scale)
+    if mode == "exact" or not approx_ok or n < MIN_FUSED_N:
+        return flat_topk_xla(q, corpus, bias, alpha, k, row_scale=row_scale)
+    if round_up(q.shape[0], 8) <= ACC_MAX_BLK_B:
+        return fused_flat_topk(q, corpus, bias, k=k, alpha=alpha, row_scale=row_scale)
+    return flat_topk_lane(q, corpus, bias, k=k, alpha=alpha, row_scale=row_scale)
