@@ -26,6 +26,25 @@ imports nothing of JAX or tostore_tpu. Phases:
   4. With --profile: the corpus's read floors on this card (a device copy
      and an int16 max over it) and, from torch.profiler, each kernel's
      device time beside the device time of its whole call.
+  5. K3 (ivf_bucket_probe) and K4 (ivf_adc) against their plain versions
+     on CUDA tensors at the 1M / C = 1024 layout (C_exp = 1024, cap =
+     1984, D = 768), B = 1, 8, 64, P = 16, dead entries included: K3 for
+     f32, bf16 and int8 + scale rows, dot / l2 / cosine; K4 for residual
+     l2 and dot tables, M = 96 / K = 256 and M = 192 / K = 16 packed.
+  6. The IVF path at size, after the flat indexes are freed: 1,000,000
+     seeded clustered rows (natural modes x3 + unit noise) at 768 dims,
+     bf16, in IVFVectorIndex(768, "l2", "bfloat16", num_clusters=1024,
+     nprobe=16); IVF-PQ on the first 500,000 with pq_subspaces=192 (K =
+     16, packed) and 96 (K = 256). Each index is loaded, trained (timed),
+     1% deleted and given 1,000 more rows (the append path). With every
+     launch counter zeroed: search_arrays at B = 1, 8, 64 mode="probe",
+     B = 8 auto, and one search(); K3 and K4 must each launch. Recall@10
+     against mode="exact" >= 0.95 raw / 0.85 PQ, no deleted pk back, and
+     shared pks' scores within the bf16 tolerance. Then K3 and K4 against
+     their plain versions on the indexes' own buckets, codes, bias and
+     probes, median ms of each at B = 8 and 64, and search_arrays probe
+     against the flat scan at B = 8 to 256 (host clock); with --profile,
+     the device-time breakdown of a probe call.
 
 Prints the card's name and power limit, the torch and CUDA versions, the
 build time, a JSON line of the kernels, and last `{"ok": true, ...}`. Any
@@ -201,10 +220,14 @@ def phase_main_path(idxs, deleted, T):
     return launches, queries
 
 
-def _check_shared_dists(metric, q, pks, dist, epks, edist):
+def _check_shared_dists(metric, q, pks, dist, epks, edist, shift=None):
     """Distances of the pks that a search and the exact path both return,
     compared as scores (l2 before the sqrt) within the bf16 tolerance of
-    max(1, |score|). Returns the largest |score difference|."""
+    max(1, |score|), after `shift(pk)`: a known difference of the two
+    paths' score terms (None: none). An l2 distance of 0 was clamped from
+    a negative squared distance (bf16 rounding of a near-duplicate) and
+    carries no score, so it is not compared. Returns the largest |score
+    difference|."""
     tol = TOL[torch.bfloat16]
     qsq = float(np.dot(q.astype(np.float64), q.astype(np.float64)))
 
@@ -212,12 +235,13 @@ def _check_shared_dists(metric, q, pks, dist, epks, edist):
         d = float(d)
         return qsq - d * d if metric == "l2" else -d
 
-    want = {p: score(d) for p, d in zip(epks.tolist(), edist.tolist())}
+    want = {p: score(d) for p, d in zip(epks.tolist(), edist.tolist())
+            if not (metric == "l2" and d == 0.0)}  # clamped: the score is lost
     worst = 0.0
     for p, d in zip(pks.tolist(), dist.tolist()):
-        if p not in want:
+        if p not in want or (metric == "l2" and d == 0.0):
             continue
-        err = abs(score(d) - want[p])
+        err = abs(score(d) - want[p] - (shift(p) if shift is not None else 0.0))
         if err > tol * max(1.0, abs(want[p])):
             raise AssertionError(f"{metric}: pk {p} score {score(d)} vs exact {want[p]}")
         worst = max(worst, err)
@@ -322,10 +346,379 @@ def phase_profile(idx, queries, T):
               f"device per call", flush=True)
 
 
+# The 1M / C = 1024 bucket layout of phase 6: C_exp slices of cap rows.
+IVF_C, IVF_CAP, IVF_D, IVF_P = 1024, 1984, 768, 16
+IVF_B = (1, 8, 64)
+ADC_CONFIGS = ((96, 256, False), (192, 16, True))  # (M, K, nibble-packed)
+
+
+def _dead_bias(gen, base, dev):
+    """base with NEG_INF on 1% of entries and past a random fill of each
+    bucket (partly filled slices)."""
+    c, cap = base.shape
+    dead = torch.rand((c, cap), generator=gen, device=dev) < 0.01
+    fill = torch.randint(cap // 2, cap + 1, (c, 1), generator=gen, device=dev)
+    dead |= torch.arange(cap, device=dev)[None, :] >= fill
+    return torch.where(dead, torch.full_like(base, NEG_INF), base)
+
+
+def _bucket_store(gen, dtype, metric, dev, c=IVF_C, cap=IVF_CAP, d=IVF_D):
+    """(bucket_vectors [c, cap, d], bias [c, cap], scale [c, cap] or None)."""
+    scale = None
+    if dtype == torch.int8:
+        v = torch.randint(-127, 128, (c, cap, d), generator=gen, device=dev,
+                          dtype=torch.int16).to(torch.int8)
+        scale = (torch.rand((c, cap), generator=gen, device=dev) + 0.5) / 127
+    else:
+        v = torch.randn((c, cap, d), generator=gen, device=dev)
+        if metric == "cosine":
+            v = v / v.norm(dim=2, keepdim=True)
+        v = v.to(dtype)
+    base = torch.zeros((c, cap), device=dev)
+    if metric == "l2":
+        for i in range(0, c, 64):
+            x = v[i : i + 64].float()
+            if scale is not None:
+                x = x * scale[i : i + 64, :, None]
+            base[i : i + 64] = -(x * x).sum(dim=2)
+    return v, _dead_bias(gen, base, dev), scale
+
+
+def _check_scores(name, got, want, lim):
+    """Kernel vs plain [B, P, cap] scores: dead entries dead in both, live
+    ones within lim (a tensor of the same shape). Returns max |diff|."""
+    live = want > NEG_INF / 2
+    if not torch.equal(got > NEG_INF / 2, live):
+        raise AssertionError(f"{name}: dead entries differ")
+    err = (got - want).abs()
+    if bool((err[live] > lim[live]).any()):
+        raise AssertionError(f"{name}: scores differ beyond the tolerance: "
+                             f"max abs err {err[live].max().item()}")
+    return err[live].max().item() if bool(live.any()) else 0.0
+
+
+def _k3_pair(IP, qf, probes, v, bias, scale):
+    return (lambda: IP.bucket_probe_scores(qf, probes, v, bias, scale),
+            lambda: IP._bucket_probe_scores_plain(qf, probes, v, bias, scale))
+
+
+def _k4_pair(IP, tabs, probes, codes, bias):
+    rounded = IP.round_tables(tabs)
+    return (lambda: IP.adc_bucket_scores(tabs, probes, codes, bias),
+            lambda: IP._adc_bucket_scores_plain(rounded, probes, codes, bias))
+
+
+def phase_ivf_kernels(dev, IP, c=IVF_C, cap=IVF_CAP, d=IVF_D, p=IVF_P, bs=IVF_B,
+                      adc_configs=ADC_CONFIGS):
+    """Phase 5: K3 and K4 against their plain versions on CUDA tensors at
+    the 1M / C = 1024 layout. K3: f32, bf16, int8 + scale for dot, l2 and
+    cosine, within 1e-5 (f32) or 1e-4 (bf16, int8) of max(1, sum_i |q_i x_i|
+    * scale), the scale of a dot product's rounding error: a score near 0
+    is a sum that cancelled, and its error does not shrink with it. K4:
+    residual l2 and dot tables, M = 96 / K = 256 and M = 192 / K = 16
+    packed, within 1e-5 of sum_m |tab|. Dead entries in both."""
+    from tostore_tpu_torch.ops.runtime import score_dtype
+    from tostore_tpu_torch.vector.pq import adc_tables_probed
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    errs = {"ivf_bucket_probe": 0.0, "ivf_adc": 0.0}
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for metric in ("dot", "l2", "cosine"):
+            v, bias, scale = _bucket_store(gen, dtype, metric, dev, c, cap, d)
+            v_abs, zeros = v.abs(), torch.zeros_like(bias)
+            alpha = 2.0 if metric == "l2" else 1.0
+            for b in bs:
+                q = torch.randn((b, d), generator=gen, device=dev)
+                if metric == "cosine":
+                    q = q / q.norm(dim=1, keepdim=True)
+                qf = (q * alpha).to(score_dtype(dtype))
+                probes = torch.randint(0, c, (b, p), generator=gen, device=dev,
+                                       dtype=torch.int32)
+                kernel, plain = _k3_pair(IP, qf, probes, v, bias, scale)
+                got, want = kernel(), plain()
+                mag = IP._bucket_probe_scores_plain(qf.abs(), probes, v_abs, zeros, scale)
+                torch.cuda.synchronize()
+                lim = TOL[dtype] * mag.clamp(min=1.0)
+                err = _check_scores("ivf_bucket_probe", got, want, lim)
+                errs["ivf_bucket_probe"] = max(errs["ivf_bucket_probe"], err)
+                print(f"phase5 ivf_bucket_probe {str(dtype)[6:]} {metric} B={b}: "
+                      f"max_abs_err {err}", flush=True)
+            del v, v_abs, bias, scale
+    for m, k, packed in adc_configs:
+        rows = m // 2 if packed else m
+        codes = torch.randint(0, 256 if packed else k, (c, rows, cap), generator=gen,
+                              device=dev, dtype=torch.int16).to(torch.uint8)
+        bias = _dead_bias(gen, torch.zeros((c, cap), device=dev), dev)
+        codebooks = torch.randn((m, k, d // m), generator=gen, device=dev)
+        cents = torch.randn((c, d), generator=gen, device=dev)
+        for metric in ("l2", "dot"):
+            for b in bs:
+                q = torch.randn((b, d), generator=gen, device=dev)
+                probes = torch.randint(0, c, (b, p), generator=gen, device=dev,
+                                       dtype=torch.int32)
+                tabs, _ = adc_tables_probed(codebooks, q, cents, probes, metric=metric)
+                kernel, plain = _k4_pair(IP, tabs, probes, codes, bias)
+                got, want = kernel(), plain()
+                mag = -IP._adc_bucket_scores_plain(IP.round_tables(tabs).abs(), probes, codes,
+                                                   torch.zeros_like(bias))
+                torch.cuda.synchronize()
+                err = _check_scores("ivf_adc", got, want, 1e-5 * mag)
+                errs["ivf_adc"] = max(errs["ivf_adc"], err)
+                print(f"phase5 ivf_adc M={m} K={k}{' packed' if packed else ''} {metric} "
+                      f"B={b}: max_abs_err {err}", flush=True)
+        del codes, bias
+    return errs
+
+
+# Phase 6: the IVF path at full size (bench_all.py:132 and :310).
+IVF_N = 1_000_000
+PQ_N = 500_000
+IVF_NAT = 2000  # natural modes of the clustered data (bench_all.py:319)
+IVF_CHUNK = 125_000
+IVF_MAIN_CALLS = [(1, "probe"), (8, "probe"), (64, "probe"), (8, "auto")]
+IVF_TIMED_B = (8, 64)
+CROSSOVER_B = (8, 32, 64, 128, 256)
+RECALL_MIN = {"raw": 0.95, "pq192": 0.85, "pq96": 0.85}  # test_vector_indexes.py:362,369
+N_FRESH = 1000  # rows upserted after the build: the append path
+IVF_CLUSTERS = 1024
+PQ_CONFIGS = {"pq192": {"pq_subspaces": 192},  # auto K = 16, nibble-packed
+              "pq96": {"pq_subspaces": 96, "pq_centroids": 256}}
+
+
+def _clustered_rows(seed, n):
+    """The JAX package's hard clustered data (test_vector_indexes.py:345-348):
+    natural modes x3 plus unit noise, in host chunks."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((IVF_NAT, DIMS), dtype=np.float32) * 3
+    chunks = []
+    for off in range(0, n, IVF_CHUNK):
+        m = min(IVF_CHUNK, n - off)
+        chunks.append(centers[rng.integers(0, IVF_NAT, m)]
+                      + rng.standard_normal((m, DIMS), dtype=np.float32))
+    return chunks, rng
+
+
+def build_ivf_indexes(dev):
+    """The three IVF indexes of phase 6, each loaded in chunks, trained
+    once (timed: train + buckets), then 1% deleted and N_FRESH rows
+    appended to the trained layout."""
+    from tostore_tpu_torch import IVFVectorIndex
+
+    chunks, rng = _clustered_rows(SEED + 6, IVF_N)
+    deleted = set(rng.choice(IVF_N, IVF_N // 100, replace=False).tolist())
+    fresh = (chunks[0][rng.integers(0, IVF_CHUNK, N_FRESH)]
+             + rng.standard_normal((N_FRESH, DIMS), dtype=np.float32) * 0.5)
+    configs = {"raw": (IVF_N, {}), **{name: (PQ_N, kw) for name, kw in PQ_CONFIGS.items()}}
+    idxs, build_s = {}, {}
+    for name, (n, kw) in configs.items():
+        idx = IVFVectorIndex(DIMS, "l2", "bfloat16", num_clusters=IVF_CLUSTERS, nprobe=16,
+                             device=dev, **kw)
+        idx.defer_retrain = True  # one build after the load, timed below
+        for i, x in enumerate(chunks[: n // IVF_CHUNK]):
+            idx.upsert(range(i * IVF_CHUNK, (i + 1) * IVF_CHUNK), x)
+        idx.defer_retrain = False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.train(force=True)
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+        idx.delete(sorted(p for p in deleted if p < n))
+        idx.upsert(range(IVF_N, IVF_N + N_FRESH), fresh)
+        torch.cuda.synchronize()
+        contig = idx.bucket_codes if idx.pq is not None else idx.bucket_vectors
+        print(f"phase6 built {name}: {n} x {DIMS} bf16, C={IVF_CLUSTERS}, layout "
+              f"{tuple(idx.buckets_slots.shape)}, contiguous {tuple(contig.shape)}; "
+              f"train + buckets {build_s[name]:.4f} s", flush=True)
+        idxs[name] = idx
+    queries = {b: chunks[0][rng.integers(0, IVF_CHUNK, b)]
+               + rng.standard_normal((b, DIMS), dtype=np.float32) * 0.1
+               for b in sorted({b for b, _ in IVF_MAIN_CALLS} | set(CROSSOVER_B))}
+    queries["single"] = fresh[3] + 0.01
+    return idxs, deleted, queries, build_s
+
+
+def phase_ivf_main_path(idxs, deleted, queries, T, IP):
+    """Phase 6a: the IVF main path through the public API, with every
+    kernel counter zeroed just before and read just after."""
+    for table in (T.LAUNCHES, IP.LAUNCHES):
+        for key in table:
+            table[key] = 0
+    results = {}
+    for name, idx in idxs.items():
+        for b, mode in IVF_MAIN_CALLS:
+            results[name, b, mode] = idx.search_arrays(queries[b], K, mode=mode)
+        results[name, "single"] = idx.search(queries["single"], top_k=K)
+    torch.cuda.synchronize()
+    launches = {**T.LAUNCHES, **IP.LAUNCHES}
+    print(f"phase6 launches on the IVF main path: {launches}", flush=True)
+    for key in IP.LAUNCHES:
+        if launches[key] <= 0:
+            raise AssertionError(f"kernel {key} was not launched on the IVF main path")
+
+    for name, idx in idxs.items():
+        hit = total = 0
+        dist_err = 0.0
+        for b, mode in IVF_MAIN_CALLS:
+            dist, slots, pks = results[name, b, mode]
+            if dist.shape != (b, K) or not np.isfinite(dist).all() or (slots < 0).any():
+                raise AssertionError(f"{name} B={b} {mode}: bad result shape or values")
+            if any(p in deleted for p in pks.ravel()):
+                raise AssertionError(f"{name} B={b} {mode}: a deleted pk came back")
+            edist, _, epks = idx.search_arrays(queries[b], K, mode="exact")
+            probed = mode == "probe" or not idx._flat_beats_probe(b, idx.nprobe)
+            shift = _bias_shift(idx) if probed else None
+            for row in range(b):
+                hit += len(set(pks[row].tolist()) & set(epks[row].tolist()))
+                total += K
+                dist_err = max(dist_err, _check_shared_dists(
+                    "l2", queries[b][row], pks[row], dist[row], epks[row], edist[row], shift))
+        hits = results[name, "single"]
+        if len(hits) != K or hits[0].primary_key != IVF_N + 3 or \
+                any(h.primary_key in deleted for h in hits):
+            raise AssertionError(f"{name}: single-query search returned {hits[:2]}")
+        recall = hit / total
+        print(f"phase6 {name}: recall@{K} vs mode='exact' {recall} over {total // K} queries; "
+              f"max |score diff| of shared pks {dist_err}", flush=True)
+        if recall < RECALL_MIN[name]:
+            raise AssertionError(f"{name}: recall@{K} {recall} < {RECALL_MIN[name]}")
+    return launches
+
+
+def _bias_shift(idx):
+    """pk -> (probe score - exact score) term by term: the raw probe's l2
+    bias of a row placed by the build is -|x|^2 of its stored bf16 row (as
+    the JAX package builds it, ivf.py:329-333), the exact scan's the f32
+    row's -sq_norm; rows appended later and the PQ re-rank use sq_norm."""
+    if idx.bucket_vectors is None:
+        return None
+    idx._ensure_slot_host()
+    c = idx.corpus
+
+    def shift(pk):
+        slot = c._pk_slot[pk]
+        sl, pos = int(idx._slot_cluster[slot]), int(idx._slot_pos[slot])
+        return float(idx.bucket_bias[sl, pos]) + float(c.sq_norms[slot])
+
+    return shift
+
+
+def _probe_args(idx, q, IP):
+    """What search_arrays hands K3 or K4 for these queries, on the index's
+    own tensors: (kernel name, kernel thunk, plain thunk, tolerance thunk)."""
+    from tostore_tpu_torch.ops.runtime import score_dtype
+    from tostore_tpu_torch.vector.ivf import _pq_tables, _select_probes
+
+    qt = torch.from_numpy(np.pad(q, ((0, 0), (0, idx.corpus.d_pad - DIMS)))).to(idx.device)
+    probe = _select_probes(qt, idx.centroids, idx._slice_cluster_dev, idx.slice_bias, True,
+                           idx.nprobe)
+    zeros = torch.zeros_like(idx.bucket_bias)
+    if idx.pq is None:
+        qf = (qt * 2.0).to(score_dtype(idx.bucket_vectors.dtype)).contiguous()
+        kernel, plain = _k3_pair(IP, qf, probe, idx.bucket_vectors, idx.bucket_bias,
+                                 idx.bucket_scales)
+        return ("ivf_bucket_probe", kernel, plain,
+                lambda: TOL[torch.bfloat16] * IP._bucket_probe_scores_plain(
+                    qf.abs(), probe, idx.bucket_vectors.abs(), zeros,
+                    idx.bucket_scales).clamp(min=1.0))
+    tabs, _ = _pq_tables(idx.pq.codebooks, qt[:, :DIMS], idx.centroids_exp[:, :DIMS], probe,
+                         "l2", True)
+    kernel, plain = _k4_pair(IP, tabs, probe, idx.bucket_codes, idx.bucket_bias)
+    return ("ivf_adc", kernel, plain,
+            lambda: -1e-5 * IP._adc_bucket_scores_plain(
+                IP.round_tables(tabs).abs(), probe, idx.bucket_codes, zeros))
+
+
+def phase_ivf_kernels_main(idxs, queries, errs, IP):
+    """Phase 6b: K3 and K4 against their plain versions on the indexes'
+    own inputs (contiguous copies, bias, probes of the main path's
+    queries), then median device ms of each, kernel vs plain."""
+    times = {}
+    for name, idx in idxs.items():
+        for b in (1, 8, 64):
+            kname, kernel, plain, lim = _probe_args(idx, queries[b], IP)
+            got, want, lim = kernel(), plain(), lim()
+            torch.cuda.synchronize()
+            err = _check_scores(kname, got, want, lim)
+            errs[kname] = max(errs[kname], err)
+            print(f"phase6 {kname} {name} main-path inputs B={b}: max_abs_err {err}",
+                  flush=True)
+        for b in IVF_TIMED_B:
+            kname, kernel, plain, _ = _probe_args(idx, queries[b], IP)
+            order = [("kernel", kernel), ("plain", plain), ("plain", plain), ("kernel", kernel)]
+            for which, fn in order:
+                times.setdefault((name, b, which), []).append(_median_ms(fn))
+            print(f"phase6 {kname} {name} B={b}: kernel {min(times[name, b, 'kernel']):.4f} ms"
+                  f"  plain {min(times[name, b, 'plain']):.4f} ms", flush=True)
+    return {key: min(v) for key, v in times.items()}
+
+
+def phase_ivf_crossover(idxs, queries):
+    """Phase 6c: search_arrays with the probe (mode='probe') against the
+    flat scan the auto mode falls back to, host clock per call, for the
+    later re-fit of _flat_beats_probe on this card."""
+    from tostore_tpu_torch import FlatVectorIndex
+
+    for name, idx in idxs.items():
+        flat = FlatVectorIndex.__new__(FlatVectorIndex)
+        flat.metric, flat.corpus = idx.metric, idx.corpus
+        row = []
+        for b in CROSSOVER_B:
+            q = queries[b]
+            ms = {}
+            for which, fn in (("probe", lambda: idx.search_arrays(q, K, mode="probe")),
+                              ("flat", lambda: flat.search_arrays(q, K)),
+                              ("flat", lambda: flat.search_arrays(q, K)),
+                              ("probe", lambda: idx.search_arrays(q, K, mode="probe"))):
+                fn()
+                t = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    fn()
+                    t.append((time.perf_counter() - t0) * 1e3)
+                ms[which] = min(ms.get(which, np.inf), float(np.median(t)))
+            row.append(f"B={b} probe {ms['probe']:.3f} flat {ms['flat']:.3f}")
+        print(f"phase6 crossover {name} (ms per search_arrays, host clock): " + "; ".join(row),
+              flush=True)
+
+
+def phase_ivf_profile(idxs, queries):
+    """Phase 6d (--profile): device time of one search_arrays(mode='probe')
+    call on each IVF index, K3 / K4 beside the whole call, and the three
+    largest other kernels, from torch.profiler (5 calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, idx in idxs.items():
+        for b in IVF_TIMED_B:
+            q = queries[b]
+            idx.search_arrays(q, K, mode="probe")
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    idx.search_arrays(q, K, mode="probe")
+                torch.cuda.synchronize()
+            kern = total = 0.0
+            other = {}
+            for ev in prof.key_averages():
+                if ev.device_type != DeviceType.CUDA:
+                    continue
+                total += ev.self_device_time_total
+                if "ivf_" in ev.key:
+                    kern += ev.self_device_time_total
+                else:
+                    other[ev.key[:60]] = other.get(ev.key[:60], 0.0) + ev.self_device_time_total
+            top = sorted(other.items(), key=lambda kv: -kv[1])[:3]
+            print(f"profile IVF {name} B={b}: kernel {kern / 5e3:.4f} ms of {total / 5e3:.4f} ms "
+                  f"device per call; next: "
+                  + "; ".join(f"{k} {v / 5e3:.4f} ms" for k, v in top), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     from tostore_tpu_torch.ops import _kernels
+    from tostore_tpu_torch.ops import ivfprobe as IP
     from tostore_tpu_torch.ops import topk as T
 
     smi = subprocess.run(
@@ -353,8 +746,20 @@ def main() -> int:
     times = phase_main_kernels(idxs, queries, T, errs)
     if "--profile" in sys.argv[1:]:
         phase_profile(idxs["l2"], queries, T)
+    del idxs
+    torch.cuda.empty_cache()
+
+    errs.update(phase_ivf_kernels(dev, IP))
+    torch.cuda.empty_cache()
+    ivf_idxs, ivf_deleted, ivf_queries, build_s = build_ivf_indexes(dev)
+    ivf_launches = phase_ivf_main_path(ivf_idxs, ivf_deleted, ivf_queries, T, IP)
+    ivf_times = phase_ivf_kernels_main(ivf_idxs, ivf_queries, errs, IP)
+    phase_ivf_crossover(ivf_idxs, ivf_queries)
+    if "--profile" in sys.argv[1:]:
+        phase_ivf_profile(ivf_idxs, ivf_queries)
 
     src = "tostore_tpu_torch/csrc/lane_topk.cu"
+    ivf_src = "tostore_tpu_torch/csrc/ivf_probe.cu"
     report = {"kernels": [
         {"name": "lane_topk_acc", "route": "cuda", "source": src,
          "replaces": "tostore_tpu/ops/topk.py:268", "launches": launches["lane_topk_acc"],
@@ -364,7 +769,17 @@ def main() -> int:
          "replaces": "tostore_tpu/ops/topk.py:331", "launches": launches["lane_topk_emit"],
          "max_abs_err": errs["lane_topk_emit"], "ms": times[256, "lane_topk_emit"],
          "plain_ms": times[256, "plain"]},
+        {"name": "ivf_bucket_probe", "route": "cuda", "source": ivf_src,
+         "replaces": "tostore_tpu/ops/ivfprobe.py:130",
+         "launches": ivf_launches["ivf_bucket_probe"],
+         "max_abs_err": errs["ivf_bucket_probe"], "ms": ivf_times["raw", 8, "kernel"],
+         "plain_ms": ivf_times["raw", 8, "plain"]},
+        {"name": "ivf_adc", "route": "cuda", "source": ivf_src,
+         "replaces": "tostore_tpu/ops/ivfprobe.py:44", "launches": ivf_launches["ivf_adc"],
+         "max_abs_err": errs["ivf_adc"], "ms": ivf_times["pq192", 8, "kernel"],
+         "plain_ms": ivf_times["pq192", 8, "plain"]},
     ]}
+    print("build s (train + buckets): " + json.dumps(build_s), flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: K1 (`lane_topk_acc`) and K2
-(`lane_topk_emit`) against their plain PyTorch versions on the same CUDA
-tensors, and the flat index on the card against the same index on the CPU.
+"""The port's CUDA kernels on the card: K1 (`lane_topk_acc`), K2
+(`lane_topk_emit`), K3 (`ivf_bucket_probe`) and K4 (`ivf_adc`) against
+their plain PyTorch versions on the same CUDA tensors, and the flat and
+IVF indexes on the card against the same indexes on the CPU.
 
 Every test needs an NVIDIA GPU (marker `cuda`) and skips without one. This
 file imports no JAX, so it runs on a machine without it; tests/conftest.py
@@ -8,15 +9,18 @@ imports JAX, so run it there with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances are stated in tests/torch_parity.py.
+Tolerances of K1/K2 are stated in tests/torch_parity.py; K3 is held to
+1e-5 (f32) or 1e-4 (bf16, int8) of max(1, sum_i |q_i x_i| * scale), K4 to
+1e-5 of sum_m |tab| (tests/test_torch_ivfprobe.py says why).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import tostore_tpu_torch.ops.ivfprobe as tivf
 import tostore_tpu_torch.ops.topk as ttopk
-from tostore_tpu_torch import FlatVectorIndex
+from tostore_tpu_torch import FlatVectorIndex, IVFVectorIndex
 from torch_parity import TOL, assert_topk_match, torch_scan_inputs
 
 pytestmark = pytest.mark.cuda
@@ -119,6 +123,130 @@ def test_flat_index_card_matches_cpu(cuda, precision):
         idx.upsert(list(range(9000)), x)
         idx.delete(list(range(0, 9000, 50)))
         res[str(dev)] = idx.search_arrays(q, 10, mode="fused")
+    d_cpu, s_cpu, _ = res["cpu"]
+    d_gpu, s_gpu, _ = res[str(cuda)]
+    qsq = np.sum(q * q, axis=1)[:, None]
+    assert_topk_match(qsq - d_gpu.astype(np.float64) ** 2, s_gpu,
+                      qsq - d_cpu.astype(np.float64) ** 2, s_cpu, TOL[precision])
+
+
+NEG_INF = float(np.finfo(np.float32).min)
+_TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+def _check_scores(got, want, lim):
+    live = want > NEG_INF / 2
+    assert torch.equal(got > NEG_INF / 2, live)
+    err = (got - want).abs()
+    assert bool((err[live] <= lim[live]).all()), err[live].max().item()
+
+
+def _probe_inputs(dev, dtype, c, cap, d, b, p, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    scale = None
+    if dtype == "int8":
+        v = torch.randint(-127, 128, (c, cap, d), generator=g, device=dev,
+                          dtype=torch.int16).to(torch.int8)
+        scale = (torch.rand((c, cap), generator=g, device=dev) + 0.5) / 127
+    else:
+        v = torch.randn((c, cap, d), generator=g, device=dev).to(_TDT[dtype])
+    bias = -torch.rand((c, cap), generator=g, device=dev) * 10
+    bias[torch.rand((c, cap), generator=g, device=dev) < 0.1] = NEG_INF
+    q = torch.randn((b, d), generator=g, device=dev)
+    q = q.to(torch.float32 if dtype == "float32" else torch.bfloat16)
+    probes = torch.randint(0, c, (b, p), generator=g, device=dev, dtype=torch.int32)
+    return q, probes, v, bias, scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("cap,d,b,p", [(37, 128, 1, 1), (1000, 256, 3, 5), (64, 768, 9, 2),
+                                       (200, 2048, 2, 3)])
+def test_k3_matches_plain(cuda, dtype, cap, d, b, p):
+    q, probes, v, bias, scale = _probe_inputs(cuda, dtype, 7, cap, d, b, p, cap + d)
+    before = tivf.LAUNCHES["ivf_bucket_probe"]
+    got = tivf.bucket_probe_scores(q, probes, v, bias, scale)
+    assert tivf.LAUNCHES["ivf_bucket_probe"] == before + 1
+    want = tivf._bucket_probe_scores_plain(q, probes, v, bias, scale)
+    mag = tivf._bucket_probe_scores_plain(q.abs(), probes, v.abs(), torch.zeros_like(bias),
+                                          scale)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 1e-4
+    _check_scores(got, want, tol * mag.clamp(min=1.0))
+
+
+def _adc_inputs(dev, m, k, packed, c, cap, b, p, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    tabs = torch.randn((b, p, m, k), generator=g, device=dev) * 4
+    rows = m // 2 if packed else m
+    codes = torch.randint(0, 256 if packed else k, (c, rows, cap), generator=g, device=dev,
+                          dtype=torch.int16).to(torch.uint8)
+    bias = torch.zeros((c, cap), device=dev)
+    bias[torch.rand((c, cap), generator=g, device=dev) < 0.1] = NEG_INF
+    probes = torch.randint(0, c, (b, p), generator=g, device=dev, dtype=torch.int32)
+    return tabs, probes, codes, bias
+
+
+@pytest.mark.parametrize("m,k,packed,smem", [
+    (96, 256, False, None),       # 96 KB table: one chunk, dynamic shared memory > 48 KB
+    (128, 256, False, None),      # 128 KB: two chunks of the default budget
+    (192, 16, True, None),
+    (192, 16, True, 16 * 64),     # 16 subspaces a chunk: 12 chunks of byte rows
+    (12, 64, False, 5 * 256),     # 5 subspaces a chunk, a short last chunk
+    (3, 256, False, None),        # (M, K) the JAX kernel does not take
+])
+@pytest.mark.parametrize("cap,b,p", [(37, 1, 1), (1984, 4, 16), (1030, 2, 3)])
+def test_k4_matches_plain(cuda, monkeypatch, m, k, packed, smem, cap, b, p):
+    if smem is not None:
+        monkeypatch.setattr(tivf, "ADC_SMEM_BYTES", smem)
+    tabs, probes, codes, bias = _adc_inputs(cuda, m, k, packed, 5, cap, b, p, m + k + cap)
+    before = tivf.LAUNCHES["ivf_adc"]
+    got = tivf.adc_bucket_scores(tabs, probes, codes, bias)
+    assert tivf.LAUNCHES["ivf_adc"] == before + 1
+    rounded = tivf.round_tables(tabs)
+    want = tivf._adc_bucket_scores_plain(rounded, probes, codes, bias)
+    mag = -tivf._adc_bucket_scores_plain(rounded.abs(), probes, codes, torch.zeros_like(bias))
+    torch.cuda.synchronize()
+    _check_scores(got, want, 1e-5 * mag)
+
+
+def test_probe_ids_out_of_range_score_dead(cuda):
+    q, probes, v, bias, _ = _probe_inputs(cuda, "bfloat16", 4, 100, 128, 2, 3, 1)
+    probes[0, 1] = 4
+    probes[1, 0] = -1
+    s = tivf.bucket_probe_scores(q, probes, v, bias)
+    assert bool((s[0, 1] <= NEG_INF / 2).all()) and bool((s[1, 0] <= NEG_INF / 2).all())
+    tabs, pr, codes, bias = _adc_inputs(cuda, 8, 16, False, 4, 100, 2, 3, 2)
+    pr[1, 2] = 99
+    s = tivf.adc_bucket_scores(tabs, pr, codes, bias)
+    assert bool((s[1, 2] <= NEG_INF / 2).all())
+
+
+@pytest.mark.parametrize("precision,pq", [("float32", 0), ("bfloat16", 0), ("int8", 0),
+                                          ("bfloat16", 16), ("float32", 8)])
+def test_ivf_index_card_matches_cpu(cuda, precision, pq):
+    rng = np.random.default_rng(6)
+    centers = rng.standard_normal((30, 64)).astype(np.float32) * 3
+    x = (centers[rng.integers(0, 30, 5000)] + rng.standard_normal((5000, 64))).astype(np.float32)
+    q = x[:8] + rng.standard_normal((8, 64)).astype(np.float32) * 0.1
+    # trained once on the CPU; both copies rebuild their layout from the
+    # same centroids and codebooks
+    idx = IVFVectorIndex(64, "l2", precision, num_clusters=16, nprobe=4, pq_subspaces=pq,
+                         min_train_size=100, device="cpu")
+    idx.upsert(list(range(5000)), x)
+    idx.delete(list(range(0, 5000, 50)))
+    state = idx.state_dict()
+    res = {}
+    for dev in ("cpu", cuda):
+        idx = IVFVectorIndex.from_state_dict(state, device=dev)
+        idx.delete(list(range(1, 5000, 70)))
+        assert (idx.bucket_vectors is not None) == (pq == 0)
+        assert (idx.bucket_codes is not None) == (pq > 0)
+        before = dict(tivf.LAUNCHES)
+        res[str(dev)] = idx.search_arrays(q, 10, mode="probe")
+        name = "ivf_adc" if pq else "ivf_bucket_probe"
+        assert tivf.LAUNCHES[name] == before[name] + (dev != "cpu")
     d_cpu, s_cpu, _ = res["cpu"]
     d_gpu, s_gpu, _ = res[str(cuda)]
     qsq = np.sum(q * q, axis=1)[:, None]

@@ -1,7 +1,8 @@
 """The port imports neither JAX nor tostore_tpu (nor ml_dtypes, which comes
 with JAX): a GPU machine with PyTorch and numpy alone must run it. A fresh
 interpreter blocks those packages with a sys.meta_path finder, then
-imports tostore_tpu_torch and runs a CPU search and a snapshot round trip.
+imports tostore_tpu_torch and runs CPU searches (flat and IVF-PQ) and
+snapshot round trips.
 """
 
 import os
@@ -48,6 +49,20 @@ _SCRIPT = textwrap.dedent("""
     assert state["corpus"]["vectors"].dtype == np.float32  # no ml_dtypes here
     again = FlatVectorIndex.from_state_dict(state, device="cpu")
     assert again.search(x[7], top_k=1)[0].primary_key == 7
+
+    from tostore_tpu_torch import IVFVectorIndex
+    from tostore_tpu_torch.ops import ivfprobe
+    ivf = IVFVectorIndex(96, "l2", "bfloat16", num_clusters=8, nprobe=4, pq_subspaces=16,
+                         min_train_size=100, device="cpu")
+    ivf.upsert(list(range(3000)), x)
+    assert ivf.pq is not None and ivf.bucket_codes is not None and ivf._pack_nibbles
+    assert ivf.search(x[7], top_k=1, mode="probe")[0].primary_key == 7
+    ivf.delete([7])
+    assert ivf.search(x[7], top_k=1, mode="probe")[0].primary_key != 7
+    state = ivf.state_dict()
+    assert state["corpus"]["vectors"].dtype == np.float32 and state["pq"] is not None
+    again = IVFVectorIndex.from_state_dict(state, device="cpu")
+    assert again.search(x[8], top_k=1, mode="probe")[0].primary_key == 8
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("OK")

@@ -1,12 +1,14 @@
-"""State conversion between the JAX package's flat index and the port's.
+"""State conversion between the JAX package's indexes and the port's.
 
-A `FlatVectorIndex.state_dict()` of the JAX package is a dict of numpy
-arrays: bf16 vectors are ml_dtypes arrays, read here bit for bit through
+A `FlatVectorIndex.state_dict()` or `IVFVectorIndex.state_dict()` of the
+JAX package is a dict of numpy arrays: bf16 vectors are ml_dtypes arrays, read here bit for bit through
 `.view(np.int16)`. The port writes the same format, so a snapshot made by
 either package opens in the other. bf16 vectors are written as ml_dtypes
 arrays where ml_dtypes imports (the JAX package's own type), else as
 float32, which widens bf16 exactly and which the JAX package's
-`from_state_dict` casts back to bf16.
+`from_state_dict` casts back to bf16. An IVF snapshot carries the
+corpus, the centroids and the PQ codebooks; the bucket layout is rebuilt
+from them on load, in either package.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import torch
 
 from .vector.corpus import INT8_SCALE, DeviceCorpus
 from .vector.flat import FlatVectorIndex
+from .vector.ivf import IVFVectorIndex
+from .vector.pq import PQCodebook
 
 
 def _rows_to_tensor(vecs: np.ndarray) -> torch.Tensor:
@@ -105,3 +109,51 @@ def flat_index_to_reference_state(idx: FlatVectorIndex) -> dict:
     """A state dict that the JAX `FlatVectorIndex.from_state_dict` opens."""
     return {"metric": idx.metric, "corpus": corpus_to_reference_state(idx.corpus),
             "type": "flat"}
+
+
+def ivf_index_from_reference(state: dict, device) -> IVFVectorIndex:
+    """The port's IVFVectorIndex from a JAX `IVFVectorIndex.state_dict()`:
+    corpus, centroids and PQ codebooks; the layout is rebuilt here."""
+    d = state
+    idx = IVFVectorIndex(
+        d["corpus"]["dims"], metric=d["metric"], precision=d["corpus"]["precision"],
+        num_clusters=d["num_clusters_cfg"], nprobe=d["nprobe"],
+        pq_subspaces=d["pq_subspaces"], pq_centroids=d["pq_centroids"],
+        rerank_factor=d["rerank_factor"],
+        # codebooks trained before residual mode existed decode raw
+        # vectors; the flag must match how they were trained
+        pq_residual=d.get("pq_residual", False), pq_rerank=d.get("pq_rerank", 0),
+        device=device,
+    )
+    idx.corpus = corpus_from_reference(d["corpus"], device)
+    if d.get("centroids") is not None:
+        idx.centroids = torch.tensor(np.asarray(d["centroids"], np.float32), device=device)
+        idx._trained_size = d.get("trained_size", len(idx.corpus))
+        if d.get("pq") is not None:
+            idx.pq = PQCodebook.from_state_dict(d["pq"], device=device)
+        idx._rebuild_buckets()
+    return idx
+
+
+def ivf_index_to_reference_state(idx: IVFVectorIndex) -> dict:
+    """A state dict that the JAX `IVFVectorIndex.from_state_dict` opens.
+    The snapshot holds a packed corpus: an index with holes is compacted
+    first (its layout rebuilt with it), so the live index stays
+    consistent."""
+    if idx.corpus._free or idx.corpus.deleted_count:
+        idx.compact()
+    return {
+        "type": "ivf",
+        "metric": idx.metric,
+        "corpus": corpus_to_reference_state(idx.corpus),
+        "num_clusters_cfg": idx.num_clusters_cfg,
+        "nprobe": idx.nprobe,
+        "pq_subspaces": idx.pq_subspaces,
+        "pq_centroids": idx.pq_centroids,
+        "rerank_factor": idx.rerank_factor,
+        "pq_residual": idx.pq_residual,
+        "pq_rerank": idx.pq_rerank,
+        "centroids": idx.centroids.cpu().numpy() if idx.trained else None,
+        "trained_size": idx._trained_size,
+        "pq": idx.pq.state_dict() if idx.pq is not None else None,
+    }

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (`tostore_tpu_torch/csrc/*.cu`).
 
-At first use, `library()` compiles every source under `csrc/` with nvcc
-into one shared library with a plain C interface, for `sm_90a` (Hopper),
-and loads it with ctypes. The library goes to `tostore_tpu_torch/_build/`
-under a name keyed by a hash of the sources, so an edited kernel is
-rebuilt and an unchanged one is loaded as it is. A missing nvcc or a
-failed build raises: no kernel has a silent substitute on the card.
+At first use, `library()` compiles each source under `csrc/` with its own
+nvcc process, all started together, into one shared library per source
+with a plain C interface, for `sm_90a` (Hopper), and loads them with
+ctypes. The libraries go to `tostore_tpu_torch/_build/` under names keyed
+by a hash of the source (and the shared headers and flags), so an edited
+kernel is rebuilt and an unchanged one is loaded as it is. A missing nvcc
+or a failed build raises: no kernel has a silent substitute on the card.
 
 Nothing here runs at import time; importing this module needs no CUDA.
 """
@@ -21,6 +22,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -33,16 +35,22 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures (csrc/lane_topk.cu): pointers and the stream are c_void_p
+# C signatures of the entry points in csrc/: pointers and the stream are
+# c_void_p
 _SIGNATURES = {
+    # lane_topk.cu (K1, K2)
     "lane_topk_acc": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "lane_topk_emit": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # ivf_probe.cu (K3, K4)
+    "ivf_bucket_probe": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "ivf_adc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: SimpleNamespace | None = None
 # what the last build printed (nvcc -Xptxas -v: registers, shared memory,
-# spills per kernel) and how long it took; empty when the .so was cached
+# spills per kernel) and how long it took (wall clock, all sources
+# together); empty when every library was cached
 build_log = ""
 build_seconds = 0.0
 
@@ -62,49 +70,72 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
-def _build() -> Path:
+def _build() -> list[Path]:
+    """One library per .cu source, the missing ones compiled in parallel."""
     global build_log, build_seconds
     srcs = _sources()
-    digest = hashlib.sha256()
-    for p in srcs:
-        digest.update(p.name.encode())
-        digest.update(p.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"libtostore_kernels_{digest.hexdigest()[:16]}.so"
-    if so.exists():
-        return so
+    shared = b"".join(p.name.encode() + p.read_bytes() for p in srcs if p.suffix != ".cu")
+    libs, jobs = [], []
+    for cu in (p for p in srcs if p.suffix == ".cu"):
+        digest = hashlib.sha256(cu.read_bytes() + shared + " ".join(NVCC_FLAGS).encode())
+        so = BUILD_DIR / f"lib{cu.stem}_{digest.hexdigest()[:16]}.so"
+        libs.append(so)
+        if not so.exists():
+            jobs.append((cu, so))
+    if not jobs:
+        return libs
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in srcs if p.suffix == ".cu"]
-    # build to a temporary name, then rename: a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
+    procs = []
+    try:
+        for cu, so in jobs:
+            # build to a temporary name, then rename: a concurrent loader
+            # never sees a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(cu)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            procs.append((cu, so, tmp, proc))
+        logs, failed = [], []
+        for cu, so, tmp, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {cu.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{cu.name} ({proc.returncode})")
+                os.unlink(tmp)
+            else:
+                os.replace(tmp, so)
+    finally:
+        for _, _, tmp, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, so)
-    return so
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_log}")
+    return libs
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+def library() -> SimpleNamespace:
+    """The kernels' C entry points (`_SIGNATURES`), built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
+            loaded = [ctypes.CDLL(str(so)) for so in _build()]
+            fns = {}
             for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
+                owners = [lib for lib in loaded if hasattr(lib, name)]
+                if len(owners) != 1:
+                    raise RuntimeError(f"{name}: found in {len(owners)} kernel libraries")
+                fn = getattr(owners[0], name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = lib
+                fns[name] = fn
+            _lib = SimpleNamespace(**fns)
         return _lib
 
 

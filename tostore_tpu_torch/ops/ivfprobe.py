@@ -1,0 +1,212 @@
+"""IVF bucket scans over bucket-contiguous layouts (counterpart of
+`tostore_tpu/ops/ivfprobe.py`): kernels K3 and K4.
+
+  - `bucket_probe_scores` (K3, `ivf_bucket_probe` in csrc/ivf_probe.cu):
+    for each (query b, probe p) the [cap, D] bucket `probes[b, p]` of the
+    contiguous corpus copy is scored against q_b:
+        s[b, p, j] = (q_b . x_j) * scale_j + bias_j
+    (alpha already folded into q; scale applied before the bias, as the
+    Pallas kernel does).
+  - `adc_bucket_scores` (K4, `ivf_adc`): PQ asymmetric distances over a
+    probed bucket's codes, s[b, p, j] = -sum_m tab[b, p, m, code[m, j]]
+    + bias_j, with 8-bit codes [C, M, cap] or 4-bit codes nibble-packed
+    two per byte [C, M/2, cap] (high nibble = subspace 2r, low = 2r+1).
+
+On a CUDA tensor each wrapper launches its kernel (built by
+ops/_kernels.py) or raises; on a CPU tensor it runs the plain PyTorch
+version (`_bucket_probe_scores_plain`, `_adc_bucket_scores_plain`). The
+top-k over [B, P * cap] runs outside, in vector/ivf.py.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _kernels
+from .runtime import score_dtype
+
+# Lanes of (subspace, centroid) pairs the JAX package's one-hot ADC kernel
+# folds per matmul group. Only `adc_kernel_supported` reads it: the CUDA
+# kernel takes every (M, K), but both packages must pick the same path.
+ADC_GROUP_LANES = 1024
+
+# Shared memory K4 gives one chunk of the (query, probe) table: M * K f32
+# entries larger than this run in several chunks of subspaces.
+ADC_SMEM_BYTES = 96 * 1024
+
+LAUNCHES = {"ivf_bucket_probe": 0, "ivf_adc": 0}
+
+_VEC_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def adc_kernel_supported(m: int, k: int) -> bool:
+    """The JAX package's predicate for its one-hot LUT kernel (M*K a
+    multiple of 128, K dividing the group width); unsupported (M, K) fall
+    back to the gather path there, and so here (vector/ivf.py), so that
+    both packages take the same path. K4 itself has no such limit."""
+    return (m * k) % 128 == 0 and ADC_GROUP_LANES % k == 0
+
+
+def _check_common(probes, store, bias, c: int, cap: int):
+    if probes.dim() != 2 or probes.dtype not in (torch.int32, torch.int64):
+        raise ValueError("probes must be an integer [B, P] tensor")
+    if bias.dtype != torch.float32 or tuple(bias.shape) != (c, cap):
+        raise ValueError(f"bucket_bias must be float32 [{c}, {cap}]")
+    for t in (probes, bias):
+        if t.device != store.device:
+            raise ValueError("all inputs must be on the buckets' device")
+
+
+# --------------------------------------------------------------------------
+# K3: raw bucket probe
+# --------------------------------------------------------------------------
+
+
+def _bucket_probe_scores_plain(q, probes, bucket_vectors, bucket_bias, bucket_scale=None):
+    """Plain PyTorch version of K3: one gather + batched product per probe
+    column (bounds the gathered block to [B, cap, D])."""
+    b, p = probes.shape
+    cap = bucket_vectors.shape[1]
+    qf = q.float()[:, :, None]  # exact: bf16 values widen to f32
+    out = torch.empty((b, p, cap), dtype=torch.float32, device=q.device)
+    pl = probes.long()
+    for j in range(p):
+        blk = bucket_vectors[pl[:, j]].float()  # [B, cap, D]; int8 widens exactly
+        s = torch.bmm(blk, qf)[:, :, 0]
+        if bucket_scale is not None:
+            s = s * bucket_scale[pl[:, j]]
+        out[:, j] = s + bucket_bias[pl[:, j]]
+    return out
+
+
+def _bucket_probe_cuda(q, probes, bucket_vectors, bucket_bias, bucket_scale):
+    c, cap, d = bucket_vectors.shape
+    b, p = probes.shape
+    if bucket_vectors.dtype not in _VEC_CODE:
+        raise TypeError(f"unsupported bucket dtype {bucket_vectors.dtype}")
+    if q.dtype != score_dtype(bucket_vectors.dtype) or tuple(q.shape) != (b, d):
+        raise ValueError(f"q must be {score_dtype(bucket_vectors.dtype)} [{b}, {d}]")
+    if (d * bucket_vectors.element_size()) % 16 or (d * q.element_size()) % 16:
+        raise ValueError(f"rows must be a multiple of 16 bytes, D={d}")
+    _check_common(probes, bucket_vectors, bucket_bias, c, cap)
+    if bucket_scale is not None and (bucket_scale.dtype != torch.float32
+                                     or tuple(bucket_scale.shape) != (c, cap)):
+        raise ValueError(f"bucket_scale must be float32 [{c}, {cap}]")
+    probes = probes.to(torch.int32).contiguous()
+    for t in (q, bucket_vectors, bucket_bias, bucket_scale):
+        if t is not None and (t.device != bucket_vectors.device or not t.is_contiguous()
+                              or t.data_ptr() % 16):
+            raise ValueError("kernel inputs must be contiguous, 16-byte aligned, on one device")
+    out = torch.empty((b, p, cap), dtype=torch.float32, device=q.device)
+    if b * p == 0 or cap == 0:
+        return out
+    lib = _kernels.library()
+    with torch.cuda.device(q.device):
+        err = lib.ivf_bucket_probe(
+            q.data_ptr(), probes.data_ptr(), bucket_vectors.data_ptr(),
+            _VEC_CODE[bucket_vectors.dtype], bucket_bias.data_ptr(),
+            bucket_scale.data_ptr() if bucket_scale is not None else None,
+            b, p, c, cap, d, out.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _kernels.check("ivf_bucket_probe", err)
+    LAUNCHES["ivf_bucket_probe"] += 1
+    return out
+
+
+def bucket_probe_scores(q, probes, bucket_vectors, bucket_bias, bucket_scale=None):
+    """q [B, D] (alpha folded in; f32 for f32 buckets, bf16 for bf16 and
+    int8 buckets), probes [B, P] int bucket ids, bucket_vectors [C, cap, D]
+    f32 / bf16 / int8, bucket_bias [C, cap] f32 additive (NEG_INF = dead
+    entry; -|x|^2 folded for l2), bucket_scale [C, cap] f32 optional
+    per-row dequant factors (int8). Returns scores [B, P, cap] f32."""
+    if not bucket_vectors.is_cuda:
+        return _bucket_probe_scores_plain(q, probes, bucket_vectors, bucket_bias, bucket_scale)
+    return _bucket_probe_cuda(q, probes, bucket_vectors, bucket_bias, bucket_scale)
+
+
+# --------------------------------------------------------------------------
+# K4: ADC over bucket-contiguous codes
+# --------------------------------------------------------------------------
+
+
+def _unpack_nibbles(codes: torch.Tensor) -> torch.Tensor:
+    """[..., M/2, cap] packed bytes -> [..., M, cap] codes in subspace
+    order (row 2r = high nibble of byte row r, row 2r+1 = low nibble)."""
+    hi, lo = codes >> 4, codes & 0xF
+    return torch.stack([hi, lo], dim=-2).reshape(*codes.shape[:-2], -1, codes.shape[-1])
+
+
+def round_tables(tabs: torch.Tensor) -> torch.Tensor:
+    """ADC tables rounded to bf16 values, held in f32 (contiguous), as
+    `adc_bucket_scores` gives them to K4 or its plain version."""
+    return tabs.to(torch.bfloat16).float().contiguous()
+
+
+def _adc_bucket_scores_plain(tabs, probes, bucket_codes, bucket_bias):
+    """Plain PyTorch version of K4 on already-rounded tables
+    (`round_tables`): a gather of each probe column's table entries,
+    summed over M."""
+    b, p, m, _ = tabs.shape
+    cap = bucket_codes.shape[2]
+    packed = bucket_codes.shape[1] * 2 == m
+    pl = probes.long()
+    out = torch.empty((b, p, cap), dtype=torch.float32, device=tabs.device)
+    for j in range(p):
+        codes = bucket_codes[pl[:, j]]  # [B, M or M/2, cap]
+        if packed:
+            codes = _unpack_nibbles(codes)
+        d = torch.gather(tabs[:, j], 2, codes.long()).sum(dim=1)  # [B, cap]
+        out[:, j] = -d + bucket_bias[pl[:, j]]
+    return out
+
+
+def _adc_cuda(tabs, probes, bucket_codes, bucket_bias, packed: bool):
+    b, p, m, k = tabs.shape
+    c, rows, cap = bucket_codes.shape
+    if bucket_codes.dtype != torch.uint8:
+        raise TypeError("bucket_codes must be uint8")
+    if packed and k != 16:
+        raise ValueError("nibble-packed codes need K = 16")
+    _check_common(probes, bucket_codes, bucket_bias, c, cap)
+    probes = probes.to(torch.int32).contiguous()
+    for t in (tabs, bucket_codes, bucket_bias):
+        if t.device != bucket_codes.device or not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous, on one device")
+    # subspaces per shared-memory chunk; whole byte rows when packed
+    m_chunk = max(2 if packed else 1, ADC_SMEM_BYTES // (4 * k))
+    m_chunk = min(m, m_chunk - (m_chunk % 2 if packed else 0))
+    out = torch.empty((b, p, cap), dtype=torch.float32, device=tabs.device)
+    if b * p == 0 or cap == 0:
+        return out
+    lib = _kernels.library()
+    with torch.cuda.device(tabs.device):
+        err = lib.ivf_adc(
+            tabs.data_ptr(), probes.data_ptr(), bucket_codes.data_ptr(),
+            bucket_bias.data_ptr(), b, p, c, m, k, cap, int(packed), m_chunk,
+            out.data_ptr(), torch.cuda.current_stream(tabs.device).cuda_stream,
+        )
+    _kernels.check("ivf_adc", err)
+    LAUNCHES["ivf_adc"] += 1
+    return out
+
+
+def adc_bucket_scores(tabs, probes, bucket_codes, bucket_bias):
+    """tabs [B, P, M, K] f32 per-(query, probe) ADC tables (lower =
+    closer; non-residual callers broadcast one table per query over P),
+    probes [B, P] int, bucket_codes [C, M, cap] u8 ([C, M/2, cap]
+    nibble-packed when K = 16), bucket_bias [C, cap] f32. Returns
+    [B, P, cap] f32 negated distances + bias.
+
+    The tables are rounded to bf16 first, as the Pallas kernel rounds them
+    for its one-hot product, so that K4, its plain version and the JAX
+    package sum the same values and rank the same re-rank pool; the sums
+    are f32."""
+    m = tabs.shape[2]
+    rows = bucket_codes.shape[1]
+    if rows * 2 != m and rows != m:
+        raise ValueError(f"bucket_codes rows {rows} fit neither M={m} nor M/2")
+    tabs = round_tables(tabs)
+    if not bucket_codes.is_cuda:
+        return _adc_bucket_scores_plain(tabs, probes, bucket_codes, bucket_bias)
+    return _adc_cuda(tabs, probes, bucket_codes, bucket_bias, packed=rows * 2 == m)
