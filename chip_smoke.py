@@ -45,6 +45,31 @@ imports nothing of JAX or tostore_tpu. Phases:
      probes, median ms of each at B = 8 and 64, and search_arrays probe
      against the flat scan at B = 8 to 256 (host clock); with --profile,
      the device-time breakdown of a probe call.
+  7. K5 (lane_topk_group) and K6 (lane_topk_group_pipe) against their
+     plain versions: first on random CUDA tensors at N = 131072 (f32, bf16
+     and int8, int8 with row scales for K5 only; l2 and dot; B = 40, 128,
+     256; K5 at gsz = 5, so its last group is partial; K6 at its default
+     gsz), then on phase 2's l2 index (capacity 1,048,576, default gsz 32:
+     16 groups). Candidates within twice the phase-1 tolerance, a row that
+     differs on a near-tie checked for its bucket and its score, and the
+     top-k as in phase 1. Then median ms of each kernel beside its plain
+     version at B = 128 and 256, and top-10 agreement with the exact scan
+     (>= 0.999).
+  8. Hybrid filtered search on the main path: a float column `price`
+     (uniform [0, 1)) and an int column `ts` (epoch ms 1.7e12 + pk, every
+     97th None) written through `filter_columns.update` into phase 2's l2
+     index and phase 6's raw and M = 192 IVF indexes; three conditions
+     (price < 0.25; a ts range whose ends cut between rows 1 ms apart; IS
+     NOT NULL ts AND (the first OR the second)) compiled as the engine does
+     (compilable, ensure, device_mask), their selectivity and device_mask
+     ms. With every launch counter zeroed: flat search_arrays B = 1, 8, 32
+     auto (K1), 256 auto, 256 fused (K2); K5 and K6 at B = 128 and 256 on
+     the filtered bias; IVF probe B = 8 and 64 (K3 raw, K4 PQ). All six
+     kernels must launch. Every hit must satisfy its predicate (evaluated
+     on the host from the numpy columns) and no deleted pk may come back;
+     flat and K5/K6 top-10 agreement with the exact scan under the same
+     mask >= 0.999; IVF recall@10 against exact-with-mask is printed (the
+     JAX package sets no filtered-IVF floor).
 
 Prints the card's name and power limit, the torch and CUDA versions, the
 build time, a JSON line of the kernels, and last `{"ok": true, ...}`. Any
@@ -183,8 +208,8 @@ def phase_main_path(idxs, deleted, T):
     torch.cuda.synchronize()
     launches = dict(T.LAUNCHES)
     print(f"phase2 launches on the main path: {launches}", flush=True)
-    for key, n in launches.items():
-        if n <= 0:
+    for key in ("lane_topk_acc", "lane_topk_emit"):  # K5/K6 run in phases 7-8
+        if launches[key] <= 0:
             raise AssertionError(f"kernel {key} was not launched on the main path")
 
     agree = total = 0
@@ -714,6 +739,282 @@ def phase_ivf_profile(idxs, queries):
                   + "; ".join(f"{k} {v / 5e3:.4f} ms" for k, v in top), flush=True)
 
 
+# Phase 7: K5 and K6 (groups of gsz 2048-row blocks).
+BLK_N = 2048
+GROUP_B = (40, 128, 256)
+GROUP_TIMED_B = (128, 256)
+GROUP_PARTIAL_GSZ = 5  # 64 blocks at CHECK_N: 13 groups, the last of 4 blocks
+
+
+def _check_group_cands(name, kc, pc, qp, corpus, bias, scale, alpha, tol, group_rows):
+    """K5/K6 candidates [B_pad, n_groups * 256] vs the plain version's: the
+    same live entries, scores within 2 * tol of max(1, |score|), and where
+    the rows differ (a near-tie made the other pick) the kernel's row lies
+    in the same (group, lane) bucket and really has the score it reports.
+    Returns (max |score diff|, number of rows that differ)."""
+    ks, ki = kc[0].double(), kc[1].long()
+    ps, pi = pc[0].double(), pc[1].long()
+    live = ps > NEG_INF / 2
+    if not torch.equal(ks > NEG_INF / 2, live):
+        raise AssertionError(f"{name}: live candidates differ")
+    err = (ks - ps).abs()
+    lim = 2 * tol * ps.abs().clamp(min=1.0)
+    if bool((err > lim)[live].any()):
+        raise AssertionError(f"{name}: candidate scores differ beyond the tolerance: "
+                             f"max abs err {err[live].max().item()}")
+    bs, pos = (live & (ki != pi)).nonzero(as_tuple=True)
+    rows = ki[bs, pos]
+    if not bool(((rows % 128 == pos % 128) & (rows // group_rows == pos // 256)).all()):
+        raise AssertionError(f"{name}: a candidate row outside its (group, lane) bucket")
+    x = corpus[rows].double()
+    if scale is not None:
+        x = x * scale[rows, None].double()
+    true = alpha * (qp[bs].double() * x).sum(1) + bias[rows].double()
+    if bool(((true - ks[bs, pos]).abs() > lim[bs, pos]).any()):
+        raise AssertionError(f"{name}: a candidate row does not have the score it reports")
+    return (err[live].max().item() if bool(live.any()) else 0.0), len(rows)
+
+
+def _group_check(T, name, q, c, bias, scale, alpha, gsz, label, errs):
+    """One kernel against its plain version, candidates and top-k, with
+    the wrapper's own padding and gsz rule."""
+    if name == "lane_topk_group":
+        blk_b, gsz = T._group_plan(q, c, BLK_N, gsz)
+        qp = T._pad_queries(q, blk_b, c.dtype)
+        kc = T._lane_topk_group_cuda(qp, c, bias, scale, alpha, BLK_N, gsz)
+    else:
+        blk_b, gsz = T._pipe_plan(q, c, BLK_N, 256, gsz)
+        qp = T._pad_queries(q, blk_b, c.dtype)
+        kc = T._lane_topk_group_pipe_cuda(qp, c, bias, alpha, BLK_N, gsz)
+    pc = T._group_cands_plain(qp, c, bias, scale, alpha, BLK_N, gsz)
+    torch.cuda.synchronize()
+    err, ties = _check_group_cands(name, kc, pc, qp, c, bias, scale, alpha, TOL[c.dtype],
+                                   gsz * BLK_N)
+    b = q.shape[0]
+    ks, ki = T._topk_pad(*kc, K)
+    ps, pi = T._topk_pad(*pc, K)
+    err = max(err, _check_topk(ks[:b], ki[:b], ps[:b], pi[:b], TOL[c.dtype]))
+    errs[name] = max(errs[name], err)
+    print(f"phase7 {name} {label} B={b} gsz={gsz} ({kc[0].shape[1] // 256} groups): "
+          f"max_abs_err {err}; {ties} candidate rows differ on near-ties", flush=True)
+
+
+def phase_group_kernels(dev, flat, T):
+    """Phase 7: K5 and K6 against their plain versions on random inputs and
+    on the main path's corpus, their device times and top-10 agreement."""
+    rng = np.random.default_rng(SEED + 7)
+    errs = {"lane_topk_group": 0.0, "lane_topk_group_pipe": 0.0}
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for metric in ("dot", "l2"):
+            c, bias, scale, alpha = _corpus(rng, CHECK_N, dtype, metric, dev)
+            for b in GROUP_B:
+                q = torch.from_numpy(rng.standard_normal((b, DIMS), dtype=np.float32)).to(dev)
+                label = f"{str(dtype)[6:]} {metric}"
+                _group_check(T, "lane_topk_group", q, c, bias, scale, alpha, GROUP_PARTIAL_GSZ,
+                             label, errs)
+                _group_check(T, "lane_topk_group_pipe", q, c, bias, None, alpha, None, label,
+                             errs)
+            del c, bias, scale
+
+    c = flat.corpus.vectors
+    bias, alpha, scale = flat._bias_alpha(None)
+    if scale is not None:
+        raise AssertionError("the main path's bf16 corpus carries no row scale")
+    times, agree, total = {}, {}, 0
+    for b in GROUP_TIMED_B:
+        qt, _, _ = flat._prep_queries(rng.standard_normal((b, DIMS), dtype=np.float32))
+        for name in errs:
+            _group_check(T, name, qt, c, bias, None, alpha, None, "main-path inputs", errs)
+        pair = (("lane_topk_group", lambda: T._fused_group_emit(
+                    qt, c, bias, k=K, alpha=alpha, blk_n=BLK_N)),
+                ("lane_topk_group plain", lambda: T._fused_group_emit_plain(
+                    qt, c, bias, k=K, alpha=alpha, blk_n=BLK_N)),
+                ("lane_topk_group_pipe", lambda: T.pipe_topk(qt, c, bias, k=K, alpha=alpha)),
+                ("lane_topk_group_pipe plain", lambda: T._pipe_topk_plain(
+                    qt, c, bias, k=K, alpha=alpha)))
+        for name, fn in list(pair) + list(reversed(pair)):  # each measured twice in turns
+            times.setdefault((b, name), []).append(_median_ms(fn))
+        _, ei = T.flat_topk_xla(qt, c, bias, alpha, K)
+        ei = ei.cpu().tolist()
+        for name, fn in pair[::2]:
+            _, ki = fn()
+            ki = ki.cpu().tolist()
+            agree[name] = agree.get(name, 0) + sum(len(set(x) & set(y)) for x, y in zip(ki, ei))
+        total += b * K
+        print(f"phase7 B={b}: " + "  ".join(f"{name} {min(times[b, name]):.4f} ms"
+                                             for name, _ in pair), flush=True)
+    for name, n in agree.items():
+        rate = n / total
+        print(f"phase7 {name} top-{K} agreement with the exact scan: {rate} over "
+              f"{total // K} queries", flush=True)
+        if rate < AGREEMENT_MIN:
+            raise AssertionError(f"{name}: top-{K} agreement {rate} < {AGREEMENT_MIN}")
+    return errs, {key: min(v) for key, v in times.items()}
+
+
+# Phase 8: hybrid filtered search (BASELINE.json config #4: price < 0.25).
+T0_MS = 1_700_000_000_000
+TS_NULL_EVERY = 97
+TS_RANGE = (T0_MS + 250_001, T0_MS + 500_000)
+HYBRID_FLAT_CALLS = [(1, "auto"), (8, "auto"), (32, "auto"), (256, "auto"), (256, "fused")]
+HYBRID_GROUP_B = (128, 256)
+HYBRID_IVF_CALLS = [(8, "probe"), (64, "probe")]
+HYBRID_IVF = ("raw", "pq192")
+
+
+def _hybrid_conditions(QC):
+    price = QC().where("price", "<", 0.25)
+    ts = QC().where("ts", "between", TS_RANGE)
+    either = QC().or_(QC().where("price", "<", 0.25)).or_(QC().where("ts", "between", TS_RANGE))
+    return {"price<0.25": price, "ts between": ts,
+            "ts isNot null & (price<0.25 | ts between)": QC().where("ts", "isNot", None)
+            .and_(either)}
+
+
+def _write_filter_columns(corpus, price, ts_null):
+    """Both columns for every live pk (pk = row of the host arrays)."""
+    pks = np.arange(len(price))
+    slots = corpus.slots_for_pks(pks.tolist())
+    live = slots >= 0
+    s, p = slots[live], pks[live]
+    fc = corpus.filter_columns
+    fc.update("price", s, price[p].tolist(), corpus.capacity)
+    fc.update("ts", s, [None if ts_null[x] else T0_MS + x for x in p.tolist()], corpus.capacity,
+              kind="int")
+
+
+def _compile_mask(filters, cond, corpus):
+    """The engine's order (engine/database.py:2689-2695): compilable, ensure
+    every referenced column, then the mask."""
+    fc = corpus.filter_columns
+    if not filters.compilable(cond, fc.names()):
+        raise AssertionError(f"{cond!r} does not compile to a device mask")
+    for name in cond.referenced_fields():
+        fc.ensure(name, corpus.capacity)
+    return filters.device_mask(cond, fc, corpus.capacity)
+
+
+def phase_hybrid(flat, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP):
+    """Phase 8: filtered search through the flat and IVF indexes and K5/K6
+    on the filtered bias, every kernel counter zeroed just before and read
+    just after; predicates, tombstones, agreement and recall checked."""
+    from tostore_tpu_torch.query import QueryCondition
+    from tostore_tpu_torch.vector import filters
+
+    rng = np.random.default_rng(SEED + 8)
+    n = IVF_N + N_FRESH
+    price = rng.random(n, dtype=np.float32)
+    ts_null = np.arange(n) % TS_NULL_EVERY == 0
+    idxs = {"flat": flat, **{name: ivf_idxs[name] for name in HYBRID_IVF}}
+    t0 = time.perf_counter()
+    for idx in idxs.values():
+        _write_filter_columns(idx.corpus, price, ts_null)
+    torch.cuda.synchronize()
+    print(f"phase8 filter columns written to {len(idxs)} indexes in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    conds = _hybrid_conditions(QueryCondition)
+    masks = {(key, name): _compile_mask(filters, cond, idx.corpus)
+             for name, cond in conds.items() for key, idx in idxs.items()}
+    live = flat.corpus.valid
+    fc, cap = flat.corpus.filter_columns, flat.corpus.capacity
+    for name, cond in conds.items():
+        m = masks["flat", name]
+        sel = (m & live).sum().item() / live.sum().item()
+        ms = _median_ms(lambda: filters.device_mask(cond, fc, cap))
+        print(f"phase8 condition {name}: selectivity {sel} of the flat index's live rows; "
+              f"device_mask {ms:.4f} ms", flush=True)
+    # the range's ends cut between rows 1 ms apart
+    edge = [TS_RANGE[0] - T0_MS - 1, TS_RANGE[0] - T0_MS, TS_RANGE[1] - T0_MS,
+            TS_RANGE[1] - T0_MS + 1]
+    edge = [pk for pk in edge if pk not in deleted and not ts_null[pk]]
+    got = masks["flat", "ts between"][torch.from_numpy(
+        flat.corpus.slots_for_pks(edge)).to(flat.device)].tolist()
+    want = [TS_RANGE[0] <= T0_MS + pk <= TS_RANGE[1] for pk in edge]
+    if got != want:
+        raise AssertionError(f"ts range edges {edge}: mask {got}, want {want}")
+
+    rng = np.random.default_rng(SEED + 9)
+    fq = {b: rng.standard_normal((b, DIMS), dtype=np.float32)
+          for b in sorted({b for b, _ in HYBRID_FLAT_CALLS} | set(HYBRID_GROUP_B))}
+    c = flat.corpus.vectors
+    for table in (T.LAUNCHES, IP.LAUNCHES):
+        for key in table:
+            table[key] = 0
+    res = {}
+    for name in conds:
+        for b, mode in HYBRID_FLAT_CALLS:
+            res["flat", name, b, mode] = flat.search_arrays(
+                fq[b], K, slot_mask=masks["flat", name], mode=mode)
+        bias, alpha, _ = flat._bias_alpha(masks["flat", name])
+        for b in HYBRID_GROUP_B:
+            qt, _, _ = flat._prep_queries(fq[b])
+            res["lane_topk_group", name, b] = T._fused_group_emit(
+                qt, c, bias, k=K, alpha=alpha, blk_n=BLK_N)
+            res["lane_topk_group_pipe", name, b] = T.pipe_topk(qt, c, bias, k=K, alpha=alpha)
+        for key in HYBRID_IVF:
+            for b, mode in HYBRID_IVF_CALLS:
+                res[key, name, b, mode] = idxs[key].search_arrays(
+                    ivf_queries[b], K, slot_mask=masks[key, name], mode=mode)
+    torch.cuda.synchronize()
+    launches = {**T.LAUNCHES, **IP.LAUNCHES}
+    print(f"phase8 launches on the hybrid path: {launches}", flush=True)
+    for key, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {key} was not launched on the hybrid path")
+
+    def check_hits(label, cond, pks, dead):
+        for pk in pks.ravel():
+            if pk is None:
+                raise AssertionError(f"{label}: fewer than {K} hits")
+            if pk in dead:
+                raise AssertionError(f"{label}: deleted pk {pk} came back")
+            rec = {"price": float(price[pk]), "ts": None if ts_null[pk] else T0_MS + pk}
+            if not cond.matches(rec):
+                raise AssertionError(f"{label}: pk {pk} {rec} fails {cond!r}")
+
+    for name, cond in conds.items():
+        agree, total = {}, {}
+        for b, mode in HYBRID_FLAT_CALLS:
+            dist, _, pks = res["flat", name, b, mode]
+            check_hits(f"flat {name} B={b} {mode}", cond, pks, deleted)
+            _, _, epks = flat.search_arrays(fq[b], K, slot_mask=masks["flat", name],
+                                            mode="exact")
+            agree["flat"] = agree.get("flat", 0) + sum(
+                len(set(x) & set(y)) for x, y in zip(pks.tolist(), epks.tolist()))
+            total["flat"] = total.get("flat", 0) + b * K
+        bias, alpha, _ = flat._bias_alpha(masks["flat", name])
+        for b in HYBRID_GROUP_B:
+            qt, _, _ = flat._prep_queries(fq[b])
+            _, ei = T.flat_topk_xla(qt, c, bias, alpha, K)
+            ei = ei.cpu().tolist()
+            for kname in ("lane_topk_group", "lane_topk_group_pipe"):
+                _, ki = res[kname, name, b]
+                pks = flat.corpus.pks_for_slots(ki.cpu().numpy())
+                check_hits(f"{kname} {name} B={b}", cond, pks, deleted)
+                agree[kname] = agree.get(kname, 0) + sum(
+                    len(set(x) & set(y)) for x, y in zip(ki.cpu().tolist(), ei))
+                total[kname] = total.get(kname, 0) + b * K
+        for key in HYBRID_IVF:
+            for b, mode in HYBRID_IVF_CALLS:
+                _, _, pks = res[key, name, b, mode]
+                check_hits(f"{key} {name} B={b}", cond, pks, ivf_deleted)
+                _, _, epks = idxs[key].search_arrays(ivf_queries[b], K,
+                                                     slot_mask=masks[key, name], mode="exact")
+                agree[key] = agree.get(key, 0) + sum(
+                    len(set(x) & set(y)) for x, y in zip(pks.tolist(), epks.tolist()))
+                total[key] = total.get(key, 0) + b * K
+        row = "; ".join(f"{key} {agree[key] / total[key]} over {total[key] // K}"
+                        for key in agree)
+        print(f"phase8 {name}: every hit satisfies it, no deleted pk; top-{K} agreement "
+              f"(recall for IVF) with exact under the mask: {row}", flush=True)
+        for key in ("flat", "lane_topk_group", "lane_topk_group_pipe"):
+            if agree[key] / total[key] < AGREEMENT_MIN:
+                raise AssertionError(f"{name} {key}: top-{K} agreement "
+                                     f"{agree[key] / total[key]} < {AGREEMENT_MIN}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -746,6 +1047,7 @@ def main() -> int:
     times = phase_main_kernels(idxs, queries, T, errs)
     if "--profile" in sys.argv[1:]:
         phase_profile(idxs["l2"], queries, T)
+    flat = idxs.pop("l2")  # phases 7 and 8 run on it
     del idxs
     torch.cuda.empty_cache()
 
@@ -757,6 +1059,9 @@ def main() -> int:
     phase_ivf_crossover(ivf_idxs, ivf_queries)
     if "--profile" in sys.argv[1:]:
         phase_ivf_profile(ivf_idxs, ivf_queries)
+    group_errs, group_times = phase_group_kernels(dev, flat, T)
+    errs.update(group_errs)
+    hybrid_launches = phase_hybrid(flat, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP)
 
     src = "tostore_tpu_torch/csrc/lane_topk.cu"
     ivf_src = "tostore_tpu_torch/csrc/ivf_probe.cu"
@@ -778,6 +1083,17 @@ def main() -> int:
          "replaces": "tostore_tpu/ops/ivfprobe.py:44", "launches": ivf_launches["ivf_adc"],
          "max_abs_err": errs["ivf_adc"], "ms": ivf_times["pq192", 8, "kernel"],
          "plain_ms": ivf_times["pq192", 8, "plain"]},
+        {"name": "lane_topk_group", "route": "cuda", "source": src,
+         "replaces": "tostore_tpu/ops/topk.py:361",
+         "launches": hybrid_launches["lane_topk_group"],
+         "max_abs_err": errs["lane_topk_group"], "ms": group_times[256, "lane_topk_group"],
+         "plain_ms": group_times[256, "lane_topk_group plain"]},
+        {"name": "lane_topk_group_pipe", "route": "cuda", "source": src,
+         "replaces": "experiments/_exp_pipe.py:75",
+         "launches": hybrid_launches["lane_topk_group_pipe"],
+         "max_abs_err": errs["lane_topk_group_pipe"],
+         "ms": group_times[256, "lane_topk_group_pipe"],
+         "plain_ms": group_times[256, "lane_topk_group_pipe plain"]},
     ]}
     print("build s (train + buckets): " + json.dumps(build_s), flush=True)
     print(json.dumps(report), flush=True)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: K1 (`lane_topk_acc`), K2
-(`lane_topk_emit`), K3 (`ivf_bucket_probe`) and K4 (`ivf_adc`) against
-their plain PyTorch versions on the same CUDA tensors, and the flat and
-IVF indexes on the card against the same indexes on the CPU.
+(`lane_topk_emit`), K3 (`ivf_bucket_probe`), K4 (`ivf_adc`), K5
+(`lane_topk_group`) and K6 (`lane_topk_group_pipe`) against their plain
+PyTorch versions on the same CUDA tensors, and the flat and IVF indexes on
+the card (filtered too) against the same indexes on the CPU.
 
 Every test needs an NVIDIA GPU (marker `cuda`) and skips without one. This
 file imports no JAX, so it runs on a machine without it; tests/conftest.py
@@ -9,7 +10,8 @@ imports JAX, so run it there with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances of K1/K2 are stated in tests/torch_parity.py; K3 is held to
+Tolerances of K1/K2/K5/K6 are stated in tests/torch_parity.py (K5/K6's
+candidates within twice that, a near-tie picking the other row); K3 is held to
 1e-5 (f32) or 1e-4 (bf16, int8) of max(1, sum_i |q_i x_i| * scale), K4 to
 1e-5 of sum_m |tab| (tests/test_torch_ivfprobe.py says why).
 """
@@ -103,6 +105,109 @@ def test_k1_k_above_candidates_and_all_invalid(cuda):
     bias = torch.full_like(tx[2], ttopk.NEG_INF)
     ks, _ = ttopk.fused_flat_topk(tx[0], tx[1], bias, k=5)
     assert bool((ks <= ttopk.NEG_INF / 2).all())
+
+
+def _check_group_cands(kc, pc, qp, corpus, bias, scale, alpha, tol, group_rows):
+    """K5/K6 candidates vs the plain version's: the same live entries,
+    scores within 2 * tol of max(1, |score|), and where the rows differ (a
+    near-tie) the kernel's row lies in the same (group, lane) bucket and
+    really has the score it reports."""
+    ks, ki = kc[0].double(), kc[1].long()
+    ps, pi = pc[0].double(), pc[1].long()
+    live = ps > NEG_INF / 2
+    assert torch.equal(ks > NEG_INF / 2, live)
+    lim = 2 * tol * ps.abs().clamp(min=1.0)
+    assert bool(((ks - ps).abs() <= lim)[live].all()), (ks - ps).abs()[live].max().item()
+    bs, pos = (live & (ki != pi)).nonzero(as_tuple=True)
+    rows = ki[bs, pos]
+    assert bool((rows % 128 == pos % 128).all() and (rows // group_rows == pos // 256).all())
+    x = corpus[rows].double()
+    if scale is not None:
+        x = x * scale[rows, None].double()
+    s = alpha * (qp[bs].double() * x).sum(1) + bias[rows].double()
+    assert bool(((s - ks[bs, pos]).abs() <= lim[bs, pos]).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+@pytest.mark.parametrize("b,n,gsz", [(40, 5 * 2048, 2), (256, 8 * 2048, None), (7, 3 * 2048, 1)])
+def test_k5_matches_plain(cuda, dtype, metric, b, n, gsz):
+    tx, alpha, _ = torch_scan_inputs(b + n, b, n, 256, dtype, metric, device=cuda)
+    q, c, bias, scale = tx
+    before = _launches()
+    ks, ki = ttopk._fused_group_emit(q, c, bias, k=10, alpha=alpha, blk_n=2048, gsz=gsz,
+                                     row_scale=scale)
+    assert ttopk.LAUNCHES["lane_topk_group"] == before["lane_topk_group"] + 1
+    ps, pi = ttopk._fused_group_emit_plain(q, c, bias, k=10, alpha=alpha, blk_n=2048, gsz=gsz,
+                                           row_scale=scale)
+    torch.cuda.synchronize()
+    assert_topk_match(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL[dtype])
+    blk_b, g = ttopk._group_plan(q, c, 2048, gsz)
+    qp = ttopk._pad_queries(q, blk_b, c.dtype)
+    kc = ttopk._lane_topk_group_cuda(qp, c, bias, scale, alpha, 2048, g)
+    pc = ttopk._group_cands_plain(qp, c, bias, scale, alpha, 2048, g)
+    _check_group_cands(kc, pc, qp, c, bias, scale, alpha, TOL[dtype], g * 2048)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b,n,gsz", [(40, 4 * 2048, 2), (256, 8 * 2048, 4), (5, 6 * 2048, 3)])
+def test_k6_matches_plain_and_k5(cuda, dtype, b, n, gsz):
+    tx, alpha, _ = torch_scan_inputs(b + n + 1, b, n, 256, dtype, "l2", device=cuda)
+    q, c, bias, _ = tx
+    before = _launches()
+    ks, ki = ttopk.pipe_topk(q, c, bias, k=10, alpha=alpha, gsz=gsz)
+    assert ttopk.LAUNCHES["lane_topk_group_pipe"] == before["lane_topk_group_pipe"] + 1
+    ps, pi = ttopk._pipe_topk_plain(q, c, bias, k=10, alpha=alpha, gsz=gsz)
+    torch.cuda.synchronize()
+    assert_topk_match(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL[dtype])
+    blk_b, g = ttopk._pipe_plan(q, c, 2048, 256, gsz)
+    qp = ttopk._pad_queries(q, blk_b, c.dtype)
+    kc = ttopk._lane_topk_group_pipe_cuda(qp, c, bias, alpha, 2048, g)
+    pc = ttopk._group_cands_plain(qp, c, bias, None, alpha, 2048, g)
+    _check_group_cands(kc, pc, qp, c, bias, None, alpha, TOL[dtype], g * 2048)
+    # the same scoring code as K5: the same candidates, bit for bit
+    k5 = ttopk._lane_topk_group_cuda(qp, c, bias, None, alpha, 2048, g)
+    assert torch.equal(kc[0], k5[0]) and torch.equal(kc[1], k5[1])
+
+
+def test_k5_k6_raise_on_bad_cuda_input(cuda):
+    c = torch.zeros(4096, 128, dtype=torch.bfloat16, device=cuda)
+    bias = torch.zeros(4096, device=cuda)
+    q = torch.zeros(8, 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):  # f32 queries on a bf16 corpus
+        ttopk._lane_topk_group_cuda(q.float(), c, bias, None, 1.0, 2048, 1)
+    with pytest.raises(ValueError):  # gsz does not divide the 2 blocks
+        ttopk._lane_topk_group_pipe_cuda(q, c, bias, 1.0, 2048, 3)
+    with pytest.raises(ValueError):  # bias of the wrong length
+        ttopk._fused_group_emit(q, c, bias[:100], k=5, alpha=1.0, blk_n=2048)
+    with pytest.raises(ValueError):  # unpadded corpus
+        ttopk.pipe_topk(q, c[:3000], bias[:3000], k=5)
+
+
+def test_filtered_flat_index_card_matches_cpu(cuda):
+    from tostore_tpu_torch.query import QueryCondition
+    from tostore_tpu_torch.vector import filters
+
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((9000, 96)).astype(np.float32)
+    q = rng.standard_normal((8, 96)).astype(np.float32)
+    price = rng.random(9000).tolist()
+    cond = QueryCondition().where("price", "<", 0.25)
+    res = {}
+    for dev in ("cpu", cuda):
+        idx = FlatVectorIndex(96, "l2", "bfloat16", device=dev)
+        slots = idx.upsert(list(range(9000)), x)
+        idx.corpus.filter_columns.update("price", slots, price, idx.corpus.capacity)
+        assert filters.compilable(cond, idx.corpus.filter_columns.names())
+        mask = filters.device_mask(cond, idx.corpus.filter_columns, idx.corpus.capacity)
+        assert mask.device.type == torch.device(dev).type
+        res[str(dev)] = idx.search_arrays(q, 10, slot_mask=mask, mode="fused")
+    d_cpu, s_cpu, p_cpu = res["cpu"]
+    d_gpu, s_gpu, p_gpu = res[str(cuda)]
+    assert all(price[p] < 0.25 for p in p_gpu.ravel())
+    qsq = np.sum(q * q, axis=1)[:, None]
+    assert_topk_match(qsq - d_gpu.astype(np.float64) ** 2, s_gpu,
+                      qsq - d_cpu.astype(np.float64) ** 2, s_cpu, TOL["bfloat16"])
 
 
 def test_wrapper_raises_on_bad_cuda_input(cuda):

@@ -50,6 +50,24 @@ _SCRIPT = textwrap.dedent("""
     again = FlatVectorIndex.from_state_dict(state, device="cpu")
     assert again.search(x[7], top_k=1)[0].primary_key == 7
 
+    from tostore_tpu_torch.query import QueryCondition
+    from tostore_tpu_torch.vector import filters
+    slots = idx.corpus.slots_for_pks(list(range(3000)))
+    live = np.flatnonzero(slots >= 0)
+    fc = idx.corpus.filter_columns
+    fc.update("ts", slots[live], (1_700_000_000_000 + live).tolist(), idx.corpus.capacity,
+              kind="int")
+    cond = QueryCondition().where("ts", ">=", 1_700_000_000_100)
+    assert filters.compilable(cond, fc.names())
+    mask = filters.device_mask(cond, fc, idx.corpus.capacity)
+    d, s, p = idx.search_arrays(x[:3], 5, slot_mask=mask)
+    assert (p >= 100).all(), p
+    c = idx.corpus.vectors
+    bias, alpha, _ = idx._bias_alpha(mask)
+    qt, _, _ = idx._prep_queries(x[200:203])
+    assert topk._fused_group_emit(qt, c, bias, k=1, alpha=alpha, blk_n=2048)[1][0, 0] == slots[200]
+    assert topk.pipe_topk(qt, c, bias, k=1, alpha=alpha, gsz=2)[1][0, 0] == slots[200]
+
     from tostore_tpu_torch import IVFVectorIndex
     from tostore_tpu_torch.ops import ivfprobe
     ivf = IVFVectorIndex(96, "l2", "bfloat16", num_clusters=8, nprobe=4, pq_subspaces=16,

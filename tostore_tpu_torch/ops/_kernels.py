@@ -38,9 +38,11 @@ _F = ctypes.c_float
 # C signatures of the entry points in csrc/: pointers and the stream are
 # c_void_p
 _SIGNATURES = {
-    # lane_topk.cu (K1, K2)
+    # lane_topk.cu (K1, K2, K5, K6)
     "lane_topk_acc": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "lane_topk_emit": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "lane_topk_group": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
+    "lane_topk_group_pipe": [_P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
     # ivf_probe.cu (K3, K4)
     "ivf_bucket_probe": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "ivf_adc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],

@@ -16,6 +16,12 @@ and merge the candidates with torch.topk. Dispatched by
     outside any kernel.
   - `flat_topk_xla` (exact): chunked matmul + torch.topk, always exact.
 
+Outside the dispatch, as in the JAX package: `_fused_group_emit` folds
+the per-block top-2 into a per-(group of gsz blocks, lane) top-2 (kernel
+K5) and `pipe_topk` does the same with the scoring pipelined against the
+selection (kernel K6); their plain versions are `_fused_group_emit_plain`
+and `_pipe_topk_plain`.
+
 Exactness contract of the approximate paths: the true global top-k is
 recovered exactly unless more than 2 of the true top-k rows share one
 (chunk, lane) candidate bucket. `mode="auto"` uses them only for
@@ -66,7 +72,8 @@ _CTAS_PER_SM = 2
 
 # Launches of each hand-written kernel, counted where the wrapper launches
 # it; a run reads them to show which kernels its path went through.
-LAUNCHES = {"lane_topk_acc": 0, "lane_topk_emit": 0}
+LAUNCHES = {"lane_topk_acc": 0, "lane_topk_emit": 0, "lane_topk_group": 0,
+            "lane_topk_group_pipe": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -363,6 +370,194 @@ def _fused_block_emit_plain(q, corpus, bias, *, k, alpha, blk_n, row_scale=None)
         raise ValueError(f"corpus must be block-padded: N={corpus.shape[0]} (blk {blk_n})")
     qp = _pad_queries(q, min(MAX_BLK_B, round_up(q.shape[0], 8)), corpus.dtype)
     cs, ci = _block_cands_plain(qp, corpus, bias, row_scale, alpha, blk_n)
+    top_s, top_i = _topk_pad(cs, ci, k)
+    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+
+
+# --------------------------------------------------------------------------
+# Grouped emission (K5) and its pipelined form (K6). No dispatch takes them:
+# the JAX package reaches them only directly (tests, experiments), and so
+# does the port.
+# --------------------------------------------------------------------------
+
+
+def _merge_top2(r1, r2, i1, i2, m1, m2, g1, g2):
+    """The reference's sorted 4-way merge (topk.py:403-421): a running pair
+    (r1 >= r2) and a block's (m1 >= m2) -> the union's top-2. The running
+    pair wins a tie for the top; the second is the larger of the tops'
+    loser and the winner's second, the loser winning a tie."""
+    w = r1 >= m1
+    c2a = torch.where(w, m1, r1)
+    j2a = torch.where(w, g1, i1)
+    c2b = torch.where(w, r2, m2)
+    j2b = torch.where(w, i2, g2)
+    w2 = c2a >= c2b
+    return (torch.where(w, r1, m1), torch.where(w2, c2a, c2b),
+            torch.where(w, i1, g1), torch.where(w2, j2a, j2b))
+
+
+def _group_cands_plain(qp, corpus, bias, row_scale, alpha, blk_n, gsz):
+    """Per-(group of gsz blocks, lane) top-2: [B_pad, n_groups*256], each
+    group's lane tops first, then its seconds, the layout K5 and K6 write.
+    Each block's per-lane top-2 folds into a running pair that starts at
+    (NEG_INF, index 0), block by block, as the reference's scratch does;
+    the last group may hold fewer blocks."""
+    cs, ci = _block_cands_plain(qp, corpus, bias, row_scale, alpha, blk_n)
+    b = cs.shape[0]
+    nb = cs.shape[1] // (CANDS_PER_LANE * LANE)
+    ng = -(-nb // gsz)
+    cs = cs.view(b, nb, CANDS_PER_LANE, LANE)
+    ci = ci.view(b, nb, CANDS_PER_LANE, LANE)
+    run = (torch.full((b, ng, LANE), NEG_INF, dtype=cs.dtype, device=cs.device),
+           torch.full((b, ng, LANE), NEG_INF, dtype=cs.dtype, device=cs.device),
+           torch.zeros((b, ng, LANE), dtype=ci.dtype, device=ci.device),
+           torch.zeros((b, ng, LANE), dtype=ci.dtype, device=ci.device))
+    first = torch.arange(ng, device=cs.device) * gsz
+    for j in range(gsz):
+        blk = first + j
+        live = (blk < nb)[None, :, None]  # the last group may end early
+        blk = blk.clamp(max=nb - 1)
+        new = _merge_top2(*run, cs[:, blk, 0], cs[:, blk, 1], ci[:, blk, 0], ci[:, blk, 1])
+        run = tuple(torch.where(live, n, o) for n, o in zip(new, run))
+    r1, r2, i1, i2 = run
+    return (torch.stack([r1, r2], 2).reshape(b, ng * CANDS_PER_LANE * LANE),
+            torch.stack([i1, i2], 2).reshape(b, ng * CANDS_PER_LANE * LANE))
+
+
+def _n_blocks(corpus, blk_n):
+    """Blocks of a non-empty, block-padded corpus. Unlike the reference,
+    which skips rows past the last whole block, an unpadded corpus raises."""
+    n, d = corpus.shape
+    if blk_n <= 0 or n % blk_n or d % LANE or n == 0:
+        raise ValueError(f"corpus must be block-padded: N={n} (blk {blk_n}), D={d}")
+    return n // blk_n
+
+
+def _group_plan(q, corpus, blk_n, gsz):
+    """(blk_b, gsz) of `_fused_group_emit` as the reference picks them
+    (topk.py:433-446): the largest group that keeps >= 16 groups (>= 2048
+    exactness buckets); the last group may be partial."""
+    n_blocks = _n_blocks(corpus, blk_n)
+    if gsz is None:
+        gsz = max(1, n_blocks // 16)
+    if gsz < 1:
+        raise ValueError(f"gsz must be >= 1, got {gsz}")
+    return min(MAX_BLK_B, round_up(q.shape[0], 8)), gsz
+
+
+def _pipe_plan(q, corpus, blk_n, blk_b, gsz):
+    """(blk_b, gsz) of `pipe_topk` as the reference picks them
+    (_exp_pipe.py:146-152): gsz >= 2 and a divisor of n_blocks."""
+    n_blocks = _n_blocks(corpus, blk_n)
+    if blk_b <= 0 or blk_b % 8:
+        raise ValueError(f"blk_b must be a positive multiple of 8, got {blk_b}")
+    if gsz is None:
+        gsz = max(2, n_blocks // 16)
+        while n_blocks % gsz:
+            gsz -= 1
+    if gsz < 2 or n_blocks % gsz:
+        raise ValueError(f"gsz must be >= 2 and divide n_blocks = {n_blocks}, got {gsz}")
+    return min(blk_b, round_up(q.shape[0], 8)), gsz
+
+
+def _group_outputs(corpus, b_pad, n_groups):
+    cw = n_groups * CANDS_PER_LANE * LANE
+    return (torch.empty((b_pad, cw), dtype=torch.float32, device=corpus.device),
+            torch.empty((b_pad, cw), dtype=torch.int32, device=corpus.device))
+
+
+def _lane_topk_group_cuda(qp, corpus, bias, row_scale, alpha, blk_n, gsz):
+    """K5 on the card: [B_pad, n_groups*256] candidates; each CTA scans
+    whole groups, so they are the reference's."""
+    _check_kernel_inputs(qp, corpus, bias, row_scale, blk_n)
+    if gsz < 1:
+        raise ValueError(f"gsz must be >= 1, got {gsz}")
+    b_pad, d = qp.shape
+    n_blocks = corpus.shape[0] // blk_n
+    out_s, out_i = _group_outputs(corpus, b_pad, -(-n_blocks // gsz))
+    lib = _kernels.library()
+    with torch.cuda.device(corpus.device):
+        err = lib.lane_topk_group(
+            qp.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
+            bias.data_ptr(), row_scale.data_ptr() if row_scale is not None else None,
+            float(alpha), b_pad, d, blk_n, n_blocks, gsz,
+            out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(corpus.device).cuda_stream,
+        )
+    _kernels.check("lane_topk_group", err)
+    LAUNCHES["lane_topk_group"] += 1
+    return out_s, out_i
+
+
+def _lane_topk_group_pipe_cuda(qp, corpus, bias, alpha, blk_n, gsz):
+    """K6 on the card: K5's candidates for a gsz dividing n_blocks, with the
+    scoring of a tile overlapping the selection of the one before."""
+    _check_kernel_inputs(qp, corpus, bias, None, blk_n)
+    b_pad, d = qp.shape
+    n_blocks = corpus.shape[0] // blk_n
+    if gsz < 1 or n_blocks % gsz:
+        raise ValueError(f"gsz must divide n_blocks = {n_blocks}, got {gsz}")
+    out_s, out_i = _group_outputs(corpus, b_pad, n_blocks // gsz)
+    lib = _kernels.library()
+    with torch.cuda.device(corpus.device):
+        err = lib.lane_topk_group_pipe(
+            qp.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], bias.data_ptr(),
+            float(alpha), b_pad, d, blk_n, n_blocks, gsz,
+            out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(corpus.device).cuda_stream,
+        )
+    _kernels.check("lane_topk_group_pipe", err)
+    LAUNCHES["lane_topk_group_pipe"] += 1
+    return out_s, out_i
+
+
+def _fused_group_emit(q, corpus, bias, *, k, alpha, blk_n, gsz=None, row_scale=None):
+    """Stage 1 = grouped emission (K5): per-(group of gsz blocks, lane)
+    top-2; stage 2 = torch.topk over [B, n_groups*256]. Returns (scores
+    [B, k] f32 desc, idx [B, k] int64). The exactness bucket count is
+    n_groups * 128. f32 corpora score in true f32, as the reference's
+    Precision.HIGHEST. On a CPU tensor this is `_fused_group_emit_plain`."""
+    if not corpus.is_cuda:
+        return _fused_group_emit_plain(q, corpus, bias, k=k, alpha=alpha, blk_n=blk_n,
+                                       gsz=gsz, row_scale=row_scale)
+    blk_b, gsz = _group_plan(q, corpus, blk_n, gsz)
+    qp = _pad_queries(q, blk_b, corpus.dtype)
+    cs, ci = _lane_topk_group_cuda(qp, corpus, bias, row_scale, alpha, blk_n, gsz)
+    top_s, top_i = _topk_pad(cs, ci, k)
+    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+
+
+def _fused_group_emit_plain(q, corpus, bias, *, k, alpha, blk_n, gsz=None, row_scale=None):
+    """Plain PyTorch version of K5 with the same candidates."""
+    blk_b, gsz = _group_plan(q, corpus, blk_n, gsz)
+    qp = _pad_queries(q, blk_b, corpus.dtype)
+    cs, ci = _group_cands_plain(qp, corpus, bias, row_scale, alpha, blk_n, gsz)
+    top_s, top_i = _topk_pad(cs, ci, k)
+    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+
+
+def pipe_topk(q, corpus, bias, *, k, alpha=1.0, blk_n=2048, blk_b=256, gsz=None):
+    """The pipelined grouped scan (K6): the candidates of
+    `_fused_group_emit` at a gsz >= 2 dividing n_blocks (default: the
+    largest such gsz keeping >= 16 groups), no row scale; then torch.topk.
+    f32 corpora score in true f32. (The TPU experiment scored f32 at the
+    default matmul precision, which is not this module's exactness
+    contract.) On a CPU tensor this is `_pipe_topk_plain`."""
+    if not corpus.is_cuda:
+        return _pipe_topk_plain(q, corpus, bias, k=k, alpha=alpha, blk_n=blk_n, blk_b=blk_b,
+                                gsz=gsz)
+    blk_b, gsz = _pipe_plan(q, corpus, blk_n, blk_b, gsz)
+    qp = _pad_queries(q, blk_b, corpus.dtype)
+    cs, ci = _lane_topk_group_pipe_cuda(qp, corpus, bias, alpha, blk_n, gsz)
+    top_s, top_i = _topk_pad(cs, ci, k)
+    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+
+
+def _pipe_topk_plain(q, corpus, bias, *, k, alpha=1.0, blk_n=2048, blk_b=256, gsz=None):
+    """Plain PyTorch version of K6 with the same candidates."""
+    blk_b, gsz = _pipe_plan(q, corpus, blk_n, blk_b, gsz)
+    qp = _pad_queries(q, blk_b, corpus.dtype)
+    cs, ci = _group_cands_plain(qp, corpus, bias, None, alpha, blk_n, gsz)
     top_s, top_i = _topk_pad(cs, ci, k)
     return top_s[: q.shape[0]], top_i[: q.shape[0]]
 

@@ -1,17 +1,33 @@
-"""Slot-aligned predicate columns (counterpart of the storage half of
-`tostore_tpu/vector/filters.py`: `FilterColumns`).
+"""Device-resident predicate columns for hybrid filtered search
+(counterpart of `tostore_tpu/vector/filters.py`).
 
 Columns referenced by hybrid-search predicates live as device tensors
 aligned with the vector corpus's slots; DeviceCorpus re-packs them when it
-compacts. Column kinds:
-  - "float" (double/boolean fields): one f32 tensor; None is NaN.
-  - "int" (integer/bigInt/datetime fields): an exact int64 tensor plus an
-    isnull bool tensor. The JAX package stores (hi int32, lo uint32,
-    isnull) because its device arrays are 32-bit; `state_dict` keeps that
-    triple layout, so snapshots move between the packages unchanged.
+compacts. A QueryCondition compiles to a few elementwise tensor ops that
+produce the slot mask on the corpus's device (`device_mask`); only the
+comparison scalars travel. The scans fold the mask into their bias
+(`search_arrays(slot_mask=)`), so a filtered search reads the corpus once,
+like an unfiltered one. The JAX package evaluates the mask in XLA outside
+any kernel; here it is plain PyTorch.
 
-Predicate evaluation on the device (`compilable`, `device_mask`) and the
-host snapshot helpers (`gather_host`, `scatter`) are not ported yet.
+Column kinds:
+  - "float" (double/boolean fields): one f32 tensor; None is NaN
+    (comparisons with NaN are False).
+  - "int" (integer/bigInt/datetime fields): an exact int64 tensor plus an
+    isnull bool tensor, so epoch-millisecond timestamps 1 ms apart stay
+    distinct. The JAX package stores (hi int32, lo uint32, isnull) because
+    its device arrays are 32-bit, and compares (hi, lo) pairs
+    lexicographically, which orders them as int64 does. `state_dict` and
+    `gather_host` / `scatter` keep that triple layout, so snapshots move
+    between the packages unchanged.
+
+Use: `compilable(cond, fc.names())`, then `fc.ensure(name, capacity)` for
+every referenced field, then `device_mask(cond, fc, capacity)`.
+
+The masks equal the JAX package's, except for bounds on int columns that
+its device path gets wrong and its host evaluator gets right (an integral
+float such as 1.7e12, an int beyond int64, an infinite bound): there
+this module gives `QueryCondition.mask`'s answer.
 """
 
 from __future__ import annotations
@@ -21,6 +37,10 @@ import math
 import numpy as np
 import torch
 
+from ..query.condition import QueryCondition
+
+_DEVICE_OPS = {"=", "!=", ">", "<", ">=", "<=", "between", "in", "is", "isNot"}
+_MAX_IN = 16  # larger IN lists are not compiled (the engine's host path serves them)
 _I64_MIN, _I64_MAX = -(2**63), 2**63 - 1
 
 
@@ -114,6 +134,32 @@ class FilterColumns:
                 nnul[:m] = nul[gather]
             self.int_columns[name] = (nval, nnul)
 
+    def gather_host(self, slots) -> dict:
+        """Host-side snapshot of the columns at the given slots (int columns
+        as (hi int32, lo uint32, isnull) triples)."""
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        return {
+            "float": {k: v[idx].cpu().numpy() for k, v in self.columns.items()},
+            "int": {k: _to_triple(val[idx], nul[idx])
+                    for k, (val, nul) in self.int_columns.items()},
+        }
+
+    def scatter(self, host_state: dict, slots, capacity: int):
+        """Write a gather_host snapshot back at (possibly different) slots."""
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        for k, v in host_state.get("float", {}).items():
+            if k not in self.columns:
+                self.columns[k] = self._nan(capacity)
+            self.ensure(k, capacity)
+            self.columns[k][idx] = torch.tensor(np.asarray(v, np.float32), device=self.device)
+        for k, (hi, lo, nu) in host_state.get("int", {}).items():
+            if k not in self.int_columns:
+                self.int_columns[k] = self._empty_int(capacity)
+            self.ensure(k, capacity)
+            val, nul = self.int_columns[k]
+            val[idx] = torch.as_tensor(_from_triple(hi, lo), device=self.device)
+            nul[idx] = torch.tensor(np.asarray(nu, np.bool_), device=self.device)
+
     def state_dict(self, upto: int | None = None):
         s = slice(None, upto)
         return {
@@ -137,3 +183,143 @@ class FilterColumns:
             nval[:m] = torch.tensor(_from_triple(hi, lo), device=self.device)
             nnul[:m] = torch.tensor(np.asarray(nu, np.bool_), device=self.device)
             self.int_columns[k] = (nval, nnul)
+
+
+def _coerce_scalar(v) -> float | None:
+    if isinstance(v, bool):
+        return 1.0 if v else 0.0
+    if isinstance(v, (int, float)):
+        return float(v)
+    if isinstance(v, str):
+        try:
+            return float(v)  # quoted-numeric reference quirk
+        except ValueError:
+            return None
+    return None
+
+
+def _coerce_int_scalar(v) -> int | float | None:
+    """For int columns: an exact int (integral floats and quoted integers
+    included, of any size), a non-integral or infinite float (handled by
+    bound adjustment), or None if unusable (NaN, text)."""
+    if isinstance(v, bool):
+        return int(v)
+    if isinstance(v, int):
+        return v
+    if isinstance(v, str):
+        try:
+            v = float(v)
+        except ValueError:
+            return None
+    if isinstance(v, float):
+        if math.isnan(v):
+            return None
+        return int(v) if v.is_integer() else v
+    return None
+
+
+def compilable(cond: QueryCondition, available: set[str]) -> bool:
+    """Can this condition tree evaluate fully on device columns?"""
+    for f, op, v in cond._clauses:
+        if f not in available or op not in _DEVICE_OPS:
+            return False
+        if op in ("is", "isNot"):
+            if v is not None:
+                return False
+        elif op == "between":
+            if any(_coerce_scalar(x) is None for x in v):
+                return False
+        elif op == "in":
+            if len(v) > _MAX_IN or any(_coerce_scalar(x) is None for x in v):
+                return False
+        elif _coerce_scalar(v) is None:
+            return False
+    return all(compilable(c, available) for c in cond._and + cond._or)
+
+
+def _float_leaf(col, op, v):
+    s = _coerce_scalar(v)
+    if op == "=":
+        return col == s
+    if op == "!=":
+        return (col != s) & ~torch.isnan(col)
+    if op == ">":
+        return col > s
+    if op == "<":
+        return col < s
+    if op == ">=":
+        return col >= s
+    return col <= s  # "<="
+
+
+def _int_leaf(val, nul, op, v):
+    """One comparison on an int column, exact in int64. Null rows never
+    match."""
+    s = _coerce_int_scalar(v)
+    ok = ~nul
+    none = torch.zeros_like(nul)
+    if s is None:
+        return none
+    if isinstance(s, float) and math.isfinite(s):  # non-integral bound
+        if op == "=":
+            return none
+        if op == "!=":
+            return ok
+        if op in (">", ">="):
+            op, s = ">=", math.ceil(s)
+        else:  # <, <=
+            op, s = "<=", math.floor(s)
+    if not _I64_MIN <= s <= _I64_MAX:  # beyond every int64 value (or infinite)
+        below = s > 0  # every stored value lies below the bound
+        return {"=": none, "!=": ok, ">": none if below else ok, ">=": none if below else ok,
+                "<": ok if below else none, "<=": ok if below else none}[op]
+    if op == "=":
+        return (val == s) & ok
+    if op == "!=":
+        return (val != s) & ok
+    if op == ">":
+        return (val > s) & ok
+    if op == "<":
+        return (val < s) & ok
+    if op == ">=":
+        return (val >= s) & ok
+    return (val <= s) & ok  # "<="
+
+
+def _leaf(fc: FilterColumns, f: str, op: str, v):
+    if f in fc.int_columns:
+        return _int_leaf(*fc.int_columns[f], op, v)
+    return _float_leaf(fc.columns[f], op, v)
+
+
+def device_mask(cond: QueryCondition, fc: FilterColumns, capacity: int) -> torch.Tensor:
+    """Compile + evaluate the condition into a bool [capacity] mask on the
+    columns' device. Node semantics: (clauses AND and-children) OR
+    or-children. Caller must have checked `compilable` against fc.names()
+    and `ensure`d every referenced column to `capacity`."""
+    dev = fc.device
+    alt = None
+    if cond._or:
+        alt = torch.zeros(capacity, dtype=torch.bool, device=dev)
+        for c in cond._or:
+            alt = alt | device_mask(c, fc, capacity)
+        if not cond._clauses and not cond._and:
+            return alt  # an OR-only node is not vacuously true (see condition.matches)
+    m = torch.ones(capacity, dtype=torch.bool, device=dev)
+    for f, op, v in cond._clauses:
+        if op in ("is", "isNot"):  # IS NULL / IS NOT NULL
+            isnull = (fc.int_columns[f][1] if f in fc.int_columns
+                      else torch.isnan(fc.columns[f]))
+            m = m & (isnull if op == "is" else ~isnull)
+        elif op == "between":
+            m = m & _leaf(fc, f, ">=", v[0]) & _leaf(fc, f, "<=", v[1])
+        elif op == "in":
+            hit = torch.zeros(capacity, dtype=torch.bool, device=dev)
+            for x in v:
+                hit = hit | _leaf(fc, f, "=", x)
+            m = m & hit
+        else:
+            m = m & _leaf(fc, f, op, v)
+    for c in cond._and:
+        m = m & device_mask(c, fc, capacity)
+    return m if alt is None else m | alt
