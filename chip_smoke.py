@@ -7,10 +7,16 @@ built at first use) and this repository's tostore_tpu_torch package; it
 imports nothing of JAX or tostore_tpu. Phases:
 
   1. K1 (lane_topk_acc) and K2 (lane_topk_emit) against their plain PyTorch
-     versions on the same CUDA tensors: f32, bf16 and int8+scale; dot, l2
-     and cosine; N = 131072, D = 768. Scores within 1e-5 (f32) or 1e-4
-     (bf16, int8) of max(1, |score|), indices equal as sets outside
-     near-ties at the k-th score.
+     versions on the same CUDA tensors: bf16 and int8+scale (the TMA /
+     wgmma kernels of csrc/lane_scan.cuh) and f32 (the f32 FMA kernels
+     lane_topk_acc_f32 / lane_topk_emit_f32); dot, l2 and cosine; N =
+     131072, D = 768; K1 at B = 1, 7, 8, 9, 16, 24, 32 (every query width
+     it instantiates), K2 at B = 40, 128, 256; blk_n 2048 and 4096; and,
+     for l2, again with the split plan forced to 9 blocks per CTA (a CTA
+     range that folds several blocks, more than T/2 so K1 bubble-inserts
+     into sorted lists, the last split shorter). Scores within 1e-5 (f32)
+     or 1e-4 (bf16, int8) of max(1, |score|), indices equal as sets
+     outside near-ties at the k-th score.
   2. The main path at size: FlatVectorIndex(768, l2 / dot, "bfloat16") on
      the card, 1,000,000 seeded vectors upserted in chunks, 1% deleted;
      search_arrays at k = 10 for B = 1, 8, 32 (auto -> K1), B = 256 (auto ->
@@ -22,10 +28,18 @@ imports nothing of JAX or tostore_tpu. Phases:
   3. K1 and K2 against their plain versions on the main path's own inputs
      (both indexes' corpus, bias and scales at capacity 1,048,576, where a
      CTA folds several blocks), with the bf16 tolerance; then median ms per
-     scan of the l2 index, kernel beside plain version, for each B.
+     scan of the l2 index (CUDA events around the wrapper's call, its final
+     top-k included), kernel beside plain version, for each B, with the
+     kernel's own device time (torch.profiler), the bound (bytes over 3.35
+     TB/s or FLOPs over 989 TFLOP/s, H100 SXM data sheet), the share of
+     it, and `product_ms`: torch.mm of the same [B, 768] x [768, N] score
+     product alone (cuBLAS; not the same function, no single PyTorch call
+     computes the lane top-k); at B = 256 also the plain lane scan and
+     mode="exact".
   4. With --profile: the corpus's read floors on this card (a device copy
      and an int16 max over it) and, from torch.profiler, each kernel's
-     device time beside the device time of its whole call.
+     device time beside the device time of its whole call and the three
+     largest other kernels of the call.
   5. K3 (ivf_bucket_probe) and K4 (ivf_adc) against their plain versions
      on CUDA tensors at the 1M / C = 1024 layout (C_exp = 1024, cap =
      1984, D = 768), B = 1, 8, 64, P = 16, dead entries included: K3 for
@@ -72,8 +86,11 @@ imports nothing of JAX or tostore_tpu. Phases:
      JAX package sets no filtered-IVF floor).
 
 Prints the card's name and power limit, the torch and CUDA versions, the
-build time, a JSON line of the kernels, and last `{"ok": true, ...}`. Any
-failure raises and exits non-zero.
+build time, a JSON line of the kernels (each with its launches on its
+path, max_abs_err, ms, plain_ms, bound_ms / bound_by computed from this
+run's shapes, library_ms, null where no single PyTorch call computes the
+function, and product_ms for the lane scans), and last `{"ok": true,
+...}`. Any failure raises and exits non-zero.
 """
 
 from __future__ import annotations
@@ -94,6 +111,28 @@ CHECK_N = 131072
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4, torch.int8: 1e-4}
 NEG_INF = float(np.finfo(np.float32).min)
 AGREEMENT_MIN = 0.999
+# H100 SXM data sheet: HBM rate and dense peaks by operand type
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+
+def _bound(nbytes, flops, peak="bf16"):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over the peak rate of their type."""
+    tb, tf = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[peak] * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _scan_bound(b, c, bias, scale, out_cols):
+    """Bound of a lane scan of B queries: the corpus, bias, scales and bf16
+    queries read once, [B, out_cols] f32 + int32 candidates written once,
+    2 B N D operations in bf16."""
+    n, d = c.shape
+    return _bound(_nbytes(c, bias, scale) + b * d * 2 + b * out_cols * 8, 2 * b * n * d)
 
 
 def _check_topk(ks, ki, ps, pi, tol):
@@ -137,34 +176,57 @@ def _corpus(rng, n, dtype, metric, dev):
     return c, bias, scale, D.metric_alpha(metric)
 
 
+K1_B = (1, 7, 8, 9, 16, 24, 32)
+K2_B = (40, 128, 256)
+FOLD_PER = 9  # blocks per CTA of a forced split plan: more than T/2, so K1 bubble-inserts
+
+
+def _kernel_vs_plain(T, q, c, bias, scale, alpha, blk_n):
+    """(name, kernel top-k, plain top-k): K1 for B <= 32, else K2; f32
+    corpora take the f32 FMA kernels."""
+    suffix = "_f32" if c.dtype == torch.float32 else ""
+    if q.shape[0] <= 32:
+        return ("lane_topk_acc" + suffix,
+                T.fused_flat_topk(q, c, bias, k=K, alpha=alpha, blk_n=blk_n, row_scale=scale),
+                T._fused_flat_topk_plain(q, c, bias, k=K, alpha=alpha, blk_n=blk_n,
+                                         row_scale=scale))
+    return ("lane_topk_emit" + suffix,
+            T._fused_block_emit(q, c, bias, k=K, alpha=alpha, blk_n=blk_n, row_scale=scale),
+            T._fused_block_emit_plain(q, c, bias, k=K, alpha=alpha, blk_n=blk_n,
+                                      row_scale=scale))
+
+
 def phase_kernels(dev, T):
-    """Phase 1: each kernel against its plain version at N = 131072."""
+    """Phase 1: each kernel against its plain version at N = 131072, every
+    query width, both block sizes, and a forced plan that folds several
+    blocks per CTA."""
     rng = np.random.default_rng(SEED)
-    errs = {"lane_topk_acc": 0.0, "lane_topk_emit": 0.0}
+    errs = {}
+    plan = T._split_plan
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         for metric in ("dot", "l2", "cosine"):
             c, bias, scale, alpha = _corpus(rng, CHECK_N, dtype, metric, dev)
-            for b in (1, 8, 32, 40, 256):
+            folds = (False, True) if metric == "l2" else (False,)
+            for fold, blk_n, b in ((f, blk, b) for f in folds for blk in (2048, 4096)
+                                   for b in K1_B + K2_B):
                 q = rng.standard_normal((b, DIMS), dtype=np.float32)
                 if metric == "cosine":
                     q = q / np.linalg.norm(q, axis=1, keepdims=True)
                 q = torch.from_numpy(q).to(dev)
-                if b <= 32:
-                    name = "lane_topk_acc"
-                    ks, ki = T.fused_flat_topk(q, c, bias, k=K, alpha=alpha, row_scale=scale)
-                    ps, pi = T._fused_flat_topk_plain(q, c, bias, k=K, alpha=alpha,
-                                                      row_scale=scale)
-                else:
-                    name = "lane_topk_emit"
-                    ks, ki = T._fused_block_emit(q, c, bias, k=K, alpha=alpha, blk_n=4096,
-                                                 row_scale=scale)
-                    ps, pi = T._fused_block_emit_plain(q, c, bias, k=K, alpha=alpha,
-                                                       blk_n=4096, row_scale=scale)
-                torch.cuda.synchronize()
+                if fold:
+                    T._split_plan = lambda n_blocks, *_: (FOLD_PER, -(-n_blocks // FOLD_PER))
+                try:
+                    name, (ks, ki), (ps, pi) = _kernel_vs_plain(T, q, c, bias, scale, alpha,
+                                                                blk_n)
+                    torch.cuda.synchronize()
+                finally:
+                    T._split_plan = plan
                 err = _check_topk(ks, ki, ps, pi, TOL[dtype])
-                errs[name] = max(errs[name], err)
-                print(f"phase1 {name} {str(dtype)[6:]} {metric} B={b}: max_abs_err {err}",
+                errs[name] = max(errs.get(name, 0.0), err)
+                print(f"phase1 {name} {str(dtype)[6:]} {metric} B={b} blk_n={blk_n}"
+                      f"{f' {FOLD_PER} blocks per CTA' if fold else ''}: max_abs_err {err}",
                       flush=True)
+            del c, bias, scale
     return errs
 
 
@@ -288,22 +350,56 @@ def _median_ms(fn, reps=15):
     return float(np.median(times))
 
 
+def _kernel_device_ms(fn, calls=5):
+    """Device time of the lane-scan kernels in one call of fn, from
+    torch.profiler over `calls` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA
+             and ("lane_scan" in ev.key or "lane_topk" in ev.key))
+    return us / calls / 1e3
+
+
 def _pairs(idx, qt, b, T):
     """(name, fn) of the fused kernel at B and its plain version, on the
-    index's own corpus, bias and scales; the lane scan joins at B > 32."""
+    index's own corpus, bias and scales, then the score product alone
+    (torch.mm, cuBLAS); the lane scan and the exact scan join at B > 32."""
     c = idx.corpus.vectors
     bias, alpha, scale = idx._bias_alpha(None)
+    qb = qt.to(c.dtype)
+    product = ("product", lambda: torch.mm(qb, c.t(), out_dtype=torch.float32))
     if b <= 32:
         return (("lane_topk_acc", lambda: T.fused_flat_topk(
                     qt, c, bias, k=K, alpha=alpha, row_scale=scale)),
                 ("plain", lambda: T._fused_flat_topk_plain(
-                    qt, c, bias, k=K, alpha=alpha, row_scale=scale)))
+                    qt, c, bias, k=K, alpha=alpha, row_scale=scale)),
+                product)
     return (("lane_topk_emit", lambda: T._fused_block_emit(
                 qt, c, bias, k=K, alpha=alpha, blk_n=4096, row_scale=scale)),
             ("plain", lambda: T._fused_block_emit_plain(
                 qt, c, bias, k=K, alpha=alpha, blk_n=4096, row_scale=scale)),
             ("lane_scan", lambda: T.flat_topk_lane(
-                qt, c, bias, k=K, alpha=alpha, row_scale=scale)))
+                qt, c, bias, k=K, alpha=alpha, row_scale=scale)),
+            ("exact", lambda: T.flat_topk_xla(qt, c, bias, alpha, K, row_scale=scale)),
+            product)
+
+
+def _pair_bound(idx, b, T):
+    """Bound of K1 (B <= 32: its [B, T*128] lists) or K2 (its [B, n_blocks
+    * 256] candidates at blk_n 4096) on the index's corpus."""
+    c = idx.corpus.vectors
+    bias, _, scale = idx._bias_alpha(None)
+    if b <= 32:
+        return _scan_bound(b, c, bias, scale, T.MAX_T_CANDS * 128)
+    return _scan_bound(b, c, bias, scale, c.shape[0] // 4096 * 256)
 
 
 def phase_main_kernels(idxs, queries, T, errs):
@@ -312,7 +408,8 @@ def phase_main_kernels(idxs, queries, T, errs):
     for metric, idx in idxs.items():
         for b in TIMED_B:
             qt, _, _ = idx._prep_queries(queries[b])
-            (name, kernel), (_, plain) = _pairs(idx, qt, b, T)[:2]
+            (_, kernel), (_, plain) = _pairs(idx, qt, b, T)[:2]
+            name = "lane_topk_acc" if b <= 32 else "lane_topk_emit"
             ks, ki = kernel()
             ps, pi = plain()
             torch.cuda.synchronize()
@@ -321,22 +418,28 @@ def phase_main_kernels(idxs, queries, T, errs):
             print(f"phase3 {name} {metric} main-path inputs B={b}: max_abs_err {err}",
                   flush=True)
     idx = idxs["l2"]
-    times = {}
+    times, bounds = {}, {}
     for b in TIMED_B:
         qt, _, _ = idx._prep_queries(queries[b])
         pair = _pairs(idx, qt, b, T)
-        # kernel, plain, plain, kernel: each version measured twice in turns
+        # kernel, plain, ..., plain, kernel: each measured twice in turns
         order = list(pair) + list(reversed(pair))
         for name, fn in order:
             times.setdefault((b, name), []).append(_median_ms(fn))
+        bounds[b] = _pair_bound(idx, b, T)
+        kname = pair[0][0]
+        times[b, "kernel"] = [_kernel_device_ms(pair[0][1])]
         t0 = time.perf_counter()
         for _ in range(5):
             idx.search_arrays(queries[b], K)
         host = (time.perf_counter() - t0) / 5 * 1e3
         row = "  ".join(f"{name} {min(times[b, name]):.4f} ms" for name, _ in pair)
-        print(f"phase3 B={b}: {row}  |  search_arrays(auto) {host:.3f} ms host clock",
-              flush=True)
-    return {key: min(v) for key, v in times.items()}
+        kms = times[b, "kernel"][0]
+        print(f"phase3 B={b}: {row}  |  {kname} kernel alone {kms:.4f} ms device; bound "
+              f"{bounds[b][0]:.4f} ms ({bounds[b][1]}), share {bounds[b][0] / kms:.4f} of the "
+              f"kernel, {bounds[b][0] / min(times[b, kname]):.4f} of the call  |  "
+              f"search_arrays(auto) {host:.3f} ms host clock", flush=True)
+    return {key: min(v) for key, v in times.items()}, bounds
 
 
 def phase_profile(idx, queries, T):
@@ -361,14 +464,19 @@ def phase_profile(idx, queries, T):
                 fn()
             torch.cuda.synchronize()
         kern = total = 0.0
+        other = {}
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:
                 continue
             total += ev.self_device_time_total
-            if "lane_topk" in ev.key:
+            if "lane_scan" in ev.key or "lane_topk" in ev.key:
                 kern += ev.self_device_time_total
+            else:
+                other[ev.key[:60]] = other.get(ev.key[:60], 0.0) + ev.self_device_time_total
+        top = sorted(other.items(), key=lambda kv: -kv[1])[:3]
         print(f"profile B={b}: {name} kernel {kern / 5e3:.4f} ms of {total / 5e3:.4f} ms "
-              f"device per call", flush=True)
+              f"device per call; next: " + "; ".join(f"{k} {v / 5e3:.4f} ms" for k, v in top),
+              flush=True)
 
 
 # The 1M / C = 1024 bucket layout of phase 6: C_exp slices of cap rows.
@@ -630,7 +738,10 @@ def _bias_shift(idx):
 
 def _probe_args(idx, q, IP):
     """What search_arrays hands K3 or K4 for these queries, on the index's
-    own tensors: (kernel name, kernel thunk, plain thunk, tolerance thunk)."""
+    own tensors: (kernel name, kernel thunk, plain thunk, tolerance thunk,
+    bound). The bound reads each probed bucket once (its rows or codes,
+    bias and scales), the queries or tables, and writes the [B, P, cap]
+    scores."""
     from tostore_tpu_torch.ops.runtime import score_dtype
     from tostore_tpu_torch.vector.ivf import _pq_tables, _select_probes
 
@@ -638,30 +749,41 @@ def _probe_args(idx, q, IP):
     probe = _select_probes(qt, idx.centroids, idx._slice_cluster_dev, idx.slice_bias, True,
                            idx.nprobe)
     zeros = torch.zeros_like(idx.bucket_bias)
+    b, p = probe.shape
+    n_probed = int(torch.unique(probe).numel())
     if idx.pq is None:
         qf = (qt * 2.0).to(score_dtype(idx.bucket_vectors.dtype)).contiguous()
         kernel, plain = _k3_pair(IP, qf, probe, idx.bucket_vectors, idx.bucket_bias,
                                  idx.bucket_scales)
+        _, cap, d = idx.bucket_vectors.shape
+        per_bucket = _nbytes(idx.bucket_vectors[0], idx.bucket_bias[0],
+                             None if idx.bucket_scales is None else idx.bucket_scales[0])
+        bound = _bound(n_probed * per_bucket + _nbytes(qf) + b * p * cap * 4,
+                       2 * b * p * cap * d)
         return ("ivf_bucket_probe", kernel, plain,
                 lambda: TOL[torch.bfloat16] * IP._bucket_probe_scores_plain(
                     qf.abs(), probe, idx.bucket_vectors.abs(), zeros,
-                    idx.bucket_scales).clamp(min=1.0))
+                    idx.bucket_scales).clamp(min=1.0), bound)
     tabs, _ = _pq_tables(idx.pq.codebooks, qt[:, :DIMS], idx.centroids_exp[:, :DIMS], probe,
                          "l2", True)
     kernel, plain = _k4_pair(IP, tabs, probe, idx.bucket_codes, idx.bucket_bias)
+    cap, m = idx.bucket_codes.shape[2], tabs.shape[2]
+    bound = _bound(n_probed * _nbytes(idx.bucket_codes[0], idx.bucket_bias[0]) + _nbytes(tabs)
+                   + b * p * cap * 4, b * p * cap * m, "f32")
     return ("ivf_adc", kernel, plain,
             lambda: -1e-5 * IP._adc_bucket_scores_plain(
-                IP.round_tables(tabs).abs(), probe, idx.bucket_codes, zeros))
+                IP.round_tables(tabs).abs(), probe, idx.bucket_codes, zeros), bound)
 
 
 def phase_ivf_kernels_main(idxs, queries, errs, IP):
     """Phase 6b: K3 and K4 against their plain versions on the indexes'
     own inputs (contiguous copies, bias, probes of the main path's
-    queries), then median device ms of each, kernel vs plain."""
-    times = {}
+    queries), then median device ms of each, kernel vs plain, and its
+    bound."""
+    times, bounds = {}, {}
     for name, idx in idxs.items():
         for b in (1, 8, 64):
-            kname, kernel, plain, lim = _probe_args(idx, queries[b], IP)
+            kname, kernel, plain, lim, _ = _probe_args(idx, queries[b], IP)
             got, want, lim = kernel(), plain(), lim()
             torch.cuda.synchronize()
             err = _check_scores(kname, got, want, lim)
@@ -669,13 +791,16 @@ def phase_ivf_kernels_main(idxs, queries, errs, IP):
             print(f"phase6 {kname} {name} main-path inputs B={b}: max_abs_err {err}",
                   flush=True)
         for b in IVF_TIMED_B:
-            kname, kernel, plain, _ = _probe_args(idx, queries[b], IP)
+            kname, kernel, plain, _, bound = _probe_args(idx, queries[b], IP)
             order = [("kernel", kernel), ("plain", plain), ("plain", plain), ("kernel", kernel)]
             for which, fn in order:
                 times.setdefault((name, b, which), []).append(_median_ms(fn))
-            print(f"phase6 {kname} {name} B={b}: kernel {min(times[name, b, 'kernel']):.4f} ms"
-                  f"  plain {min(times[name, b, 'plain']):.4f} ms", flush=True)
-    return {key: min(v) for key, v in times.items()}
+            bounds[name, b] = bound
+            ms = min(times[name, b, "kernel"])
+            print(f"phase6 {kname} {name} B={b}: kernel {ms:.4f} ms"
+                  f"  plain {min(times[name, b, 'plain']):.4f} ms  bound {bound[0]:.4f} ms "
+                  f"({bound[1]}), share {bound[0] / ms:.4f}", flush=True)
+    return {key: min(v) for key, v in times.items()}, bounds
 
 
 def phase_ivf_crossover(idxs, queries):
@@ -820,7 +945,7 @@ def phase_group_kernels(dev, flat, T):
     bias, alpha, scale = flat._bias_alpha(None)
     if scale is not None:
         raise AssertionError("the main path's bf16 corpus carries no row scale")
-    times, agree, total = {}, {}, 0
+    times, bounds, agree, total = {}, {}, {}, 0
     for b in GROUP_TIMED_B:
         qt, _, _ = flat._prep_queries(rng.standard_normal((b, DIMS), dtype=np.float32))
         for name in errs:
@@ -832,7 +957,9 @@ def phase_group_kernels(dev, flat, T):
                 ("lane_topk_group_pipe", lambda: T.pipe_topk(qt, c, bias, k=K, alpha=alpha)),
                 ("lane_topk_group_pipe plain", lambda: T._pipe_topk_plain(
                     qt, c, bias, k=K, alpha=alpha)))
-        for name, fn in list(pair) + list(reversed(pair)):  # each measured twice in turns
+        qb = qt.to(c.dtype)
+        product = ("product", lambda: torch.mm(qb, c.t(), out_dtype=torch.float32))
+        for name, fn in list(pair) + [product] + list(reversed(pair)):  # twice, in turns
             times.setdefault((b, name), []).append(_median_ms(fn))
         _, ei = T.flat_topk_xla(qt, c, bias, alpha, K)
         ei = ei.cpu().tolist()
@@ -841,15 +968,18 @@ def phase_group_kernels(dev, flat, T):
             ki = ki.cpu().tolist()
             agree[name] = agree.get(name, 0) + sum(len(set(x) & set(y)) for x, y in zip(ki, ei))
         total += b * K
+        # K5 and K6 write [B, 16 groups * 256] candidates at gsz 32
+        bounds[b] = _scan_bound(b, c, bias, None, c.shape[0] // (32 * BLK_N) * 256)
         print(f"phase7 B={b}: " + "  ".join(f"{name} {min(times[b, name]):.4f} ms"
-                                             for name, _ in pair), flush=True)
+                                             for name, _ in list(pair) + [product])
+              + f"  |  bound {bounds[b][0]:.4f} ms ({bounds[b][1]})", flush=True)
     for name, n in agree.items():
         rate = n / total
         print(f"phase7 {name} top-{K} agreement with the exact scan: {rate} over "
               f"{total // K} queries", flush=True)
         if rate < AGREEMENT_MIN:
             raise AssertionError(f"{name}: top-{K} agreement {rate} < {AGREEMENT_MIN}")
-    return errs, {key: min(v) for key, v in times.items()}
+    return errs, {key: min(v) for key, v in times.items()}, bounds
 
 
 # Phase 8: hybrid filtered search (BASELINE.json config #4: price < 0.25).
@@ -860,6 +990,8 @@ HYBRID_FLAT_CALLS = [(1, "auto"), (8, "auto"), (32, "auto"), (256, "auto"), (256
 HYBRID_GROUP_B = (128, 256)
 HYBRID_IVF_CALLS = [(8, "probe"), (64, "probe")]
 HYBRID_IVF = ("raw", "pq192")
+SIX_KERNELS = ("lane_topk_acc", "lane_topk_emit", "ivf_bucket_probe", "ivf_adc",
+               "lane_topk_group", "lane_topk_group_pipe")
 
 
 def _hybrid_conditions(QC):
@@ -959,8 +1091,8 @@ def phase_hybrid(flat, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP):
     torch.cuda.synchronize()
     launches = {**T.LAUNCHES, **IP.LAUNCHES}
     print(f"phase8 launches on the hybrid path: {launches}", flush=True)
-    for key, count in launches.items():
-        if count <= 0:
+    for key in SIX_KERNELS:  # the f32 FMA kernels serve no bf16 path
+        if launches[key] <= 0:
             raise AssertionError(f"kernel {key} was not launched on the hybrid path")
 
     def check_hits(label, cond, pks, dead):
@@ -1015,6 +1147,31 @@ def phase_hybrid(flat, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP):
     return launches
 
 
+def _print_ptxas(log):
+    """One line per compiled kernel from nvcc -Xptxas -v: its (mangled,
+    shortened) name, registers and spill bytes. Returns {name: spill
+    bytes}."""
+    import re
+
+    name, spills = None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            stem = re.search(r"(lane_scan_kernel|lane_topk\w*?_kernel|ivf_\w+?_kernel)(\w*)",
+                             m.group(1))
+            name = (stem.group(1) + stem.group(2).split("EEEv")[0] if stem
+                    else m.group(1))[:72]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills[name] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            print(f"  ptxas: {name}: {m.group(1)} registers, {spills.get(name, 0)} bytes "
+                  f"spilled", flush=True)
+    return spills
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1037,14 +1194,14 @@ def main() -> int:
     _kernels.library()
     print(f"kernel build {time.perf_counter() - t0:.2f} s (nvcc {_kernels.build_seconds:.2f} s)",
           flush=True)
-    for line in _kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.split(":", 1)[-1].strip(), flush=True)
+    spills = _print_ptxas(_kernels.build_log)
+    if any(spills[name] for name in spills if "lane_scan" in name):
+        raise AssertionError("a TMA / wgmma lane-scan kernel spills registers")
 
     errs = phase_kernels(dev, T)
     idxs, deleted = build_indexes(dev)
     launches, queries = phase_main_path(idxs, deleted, T)
-    times = phase_main_kernels(idxs, queries, T, errs)
+    times, bounds = phase_main_kernels(idxs, queries, T, errs)
     if "--profile" in sys.argv[1:]:
         phase_profile(idxs["l2"], queries, T)
     flat = idxs.pop("l2")  # phases 7 and 8 run on it
@@ -1055,45 +1212,51 @@ def main() -> int:
     torch.cuda.empty_cache()
     ivf_idxs, ivf_deleted, ivf_queries, build_s = build_ivf_indexes(dev)
     ivf_launches = phase_ivf_main_path(ivf_idxs, ivf_deleted, ivf_queries, T, IP)
-    ivf_times = phase_ivf_kernels_main(ivf_idxs, ivf_queries, errs, IP)
+    ivf_times, ivf_bounds = phase_ivf_kernels_main(ivf_idxs, ivf_queries, errs, IP)
     phase_ivf_crossover(ivf_idxs, ivf_queries)
     if "--profile" in sys.argv[1:]:
         phase_ivf_profile(ivf_idxs, ivf_queries)
-    group_errs, group_times = phase_group_kernels(dev, flat, T)
+    group_errs, group_times, group_bounds = phase_group_kernels(dev, flat, T)
     errs.update(group_errs)
     hybrid_launches = phase_hybrid(flat, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP)
 
     src = "tostore_tpu_torch/csrc/lane_topk.cu"
+    scan_src = "tostore_tpu_torch/csrc/lane_scan.cuh"
     ivf_src = "tostore_tpu_torch/csrc/ivf_probe.cu"
+
+    def entry(name, source, replaces, launched, ms, plain_ms, bound, product_ms=None,
+              kernel_ms=None):
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launched, "max_abs_err": errs[name], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+               "library_ms": None}  # no single PyTorch call computes these functions
+        if product_ms is not None:  # the score product alone (cuBLAS), not the same function
+            row["product_ms"] = product_ms
+        if kernel_ms is not None:  # the kernel alone, device time (ms: the wrapper's call)
+            row["kernel_ms"] = kernel_ms
+        return row
+
     report = {"kernels": [
-        {"name": "lane_topk_acc", "route": "cuda", "source": src,
-         "replaces": "tostore_tpu/ops/topk.py:268", "launches": launches["lane_topk_acc"],
-         "max_abs_err": errs["lane_topk_acc"], "ms": times[1, "lane_topk_acc"],
-         "plain_ms": times[1, "plain"]},
-        {"name": "lane_topk_emit", "route": "cuda", "source": src,
-         "replaces": "tostore_tpu/ops/topk.py:331", "launches": launches["lane_topk_emit"],
-         "max_abs_err": errs["lane_topk_emit"], "ms": times[256, "lane_topk_emit"],
-         "plain_ms": times[256, "plain"]},
-        {"name": "ivf_bucket_probe", "route": "cuda", "source": ivf_src,
-         "replaces": "tostore_tpu/ops/ivfprobe.py:130",
-         "launches": ivf_launches["ivf_bucket_probe"],
-         "max_abs_err": errs["ivf_bucket_probe"], "ms": ivf_times["raw", 8, "kernel"],
-         "plain_ms": ivf_times["raw", 8, "plain"]},
-        {"name": "ivf_adc", "route": "cuda", "source": ivf_src,
-         "replaces": "tostore_tpu/ops/ivfprobe.py:44", "launches": ivf_launches["ivf_adc"],
-         "max_abs_err": errs["ivf_adc"], "ms": ivf_times["pq192", 8, "kernel"],
-         "plain_ms": ivf_times["pq192", 8, "plain"]},
-        {"name": "lane_topk_group", "route": "cuda", "source": src,
-         "replaces": "tostore_tpu/ops/topk.py:361",
-         "launches": hybrid_launches["lane_topk_group"],
-         "max_abs_err": errs["lane_topk_group"], "ms": group_times[256, "lane_topk_group"],
-         "plain_ms": group_times[256, "lane_topk_group plain"]},
-        {"name": "lane_topk_group_pipe", "route": "cuda", "source": src,
-         "replaces": "experiments/_exp_pipe.py:75",
-         "launches": hybrid_launches["lane_topk_group_pipe"],
-         "max_abs_err": errs["lane_topk_group_pipe"],
-         "ms": group_times[256, "lane_topk_group_pipe"],
-         "plain_ms": group_times[256, "lane_topk_group_pipe plain"]},
+        entry("lane_topk_acc", scan_src, "tostore_tpu/ops/topk.py:268", launches["lane_topk_acc"],
+              times[1, "lane_topk_acc"], times[1, "plain"], bounds[1], times[1, "product"],
+              times[1, "kernel"]),
+        entry("lane_topk_emit", scan_src, "tostore_tpu/ops/topk.py:331",
+              launches["lane_topk_emit"], times[256, "lane_topk_emit"], times[256, "plain"],
+              bounds[256], times[256, "product"], times[256, "kernel"]),
+        entry("ivf_bucket_probe", ivf_src, "tostore_tpu/ops/ivfprobe.py:130",
+              ivf_launches["ivf_bucket_probe"], ivf_times["raw", 8, "kernel"],
+              ivf_times["raw", 8, "plain"], ivf_bounds["raw", 8]),
+        entry("ivf_adc", ivf_src, "tostore_tpu/ops/ivfprobe.py:44", ivf_launches["ivf_adc"],
+              ivf_times["pq192", 8, "kernel"], ivf_times["pq192", 8, "plain"],
+              ivf_bounds["pq192", 8]),
+        entry("lane_topk_group", src, "tostore_tpu/ops/topk.py:361",
+              hybrid_launches["lane_topk_group"], group_times[256, "lane_topk_group"],
+              group_times[256, "lane_topk_group plain"], group_bounds[256],
+              group_times[256, "product"]),
+        entry("lane_topk_group_pipe", src, "experiments/_exp_pipe.py:75",
+              hybrid_launches["lane_topk_group_pipe"], group_times[256, "lane_topk_group_pipe"],
+              group_times[256, "lane_topk_group_pipe plain"], group_bounds[256],
+              group_times[256, "product"]),
     ]}
     print("build s (train + buckets): " + json.dumps(build_s), flush=True)
     print(json.dumps(report), flush=True)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: K1 (`lane_topk_acc`), K2
-(`lane_topk_emit`), K3 (`ivf_bucket_probe`), K4 (`ivf_adc`), K5
+"""The port's CUDA kernels on the card: K1 (`lane_topk_acc`; f32 corpora
+`lane_topk_acc_f32`), K2 (`lane_topk_emit`; f32 `lane_topk_emit_f32`), K3
+(`ivf_bucket_probe`), K4 (`ivf_adc`), K5
 (`lane_topk_group`) and K6 (`lane_topk_group_pipe`) against their plain
 PyTorch versions on the same CUDA tensors, and the flat and IVF indexes on
 the card (filtered too) against the same indexes on the CPU.
@@ -42,41 +43,54 @@ def _launches():
     return dict(ttopk.LAUNCHES)
 
 
+def _kernel_name(name, dtype):
+    """bf16 and int8 corpora take the TMA/wgmma kernels, f32 ones the f32
+    FMA kernels, each with its own launch counter."""
+    return name + "_f32" if dtype == "float32" else name
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("metric", ["dot", "l2", "cosine"])
-@pytest.mark.parametrize("b", [1, 7, 32])
-def test_k1_matches_plain(cuda, dtype, metric, b):
+@pytest.mark.parametrize("b", [1, 7, 8, 9, 16, 24, 32])
+@pytest.mark.parametrize("blk_n", [2048, 4096])
+def test_k1_matches_plain(cuda, dtype, metric, b, blk_n):
     tx, alpha, _ = torch_scan_inputs(b, b, 16384, 256, dtype, metric, device=cuda)
+    name = _kernel_name("lane_topk_acc", dtype)
     before = _launches()
-    ks, ki = ttopk.fused_flat_topk(*tx[:3], k=10, alpha=alpha, row_scale=tx[3])
-    assert ttopk.LAUNCHES["lane_topk_acc"] == before["lane_topk_acc"] + 1
-    ps, pi = ttopk._fused_flat_topk_plain(*tx[:3], k=10, alpha=alpha, row_scale=tx[3])
+    ks, ki = ttopk.fused_flat_topk(*tx[:3], k=10, alpha=alpha, blk_n=blk_n, row_scale=tx[3])
+    assert ttopk.LAUNCHES[name] == before[name] + 1
+    ps, pi = ttopk._fused_flat_topk_plain(*tx[:3], k=10, alpha=alpha, blk_n=blk_n,
+                                          row_scale=tx[3])
     torch.cuda.synchronize()
     assert_topk_match(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("b,n", [(40, 16384), (256, 8192)])
-def test_k2_matches_plain(cuda, dtype, b, n):
+@pytest.mark.parametrize("b,n", [(40, 16384), (128, 8192), (256, 8192)])
+@pytest.mark.parametrize("blk_n", [2048, 4096])
+def test_k2_matches_plain(cuda, dtype, b, n, blk_n):
     tx, alpha, _ = torch_scan_inputs(b + n, b, n, 256, dtype, "l2", device=cuda)
+    name = _kernel_name("lane_topk_emit", dtype)
     before = _launches()
-    ks, ki = ttopk._fused_block_emit(*tx[:3], k=10, alpha=alpha, blk_n=4096,
+    ks, ki = ttopk._fused_block_emit(*tx[:3], k=10, alpha=alpha, blk_n=blk_n,
                                      row_scale=tx[3])
-    assert ttopk.LAUNCHES["lane_topk_emit"] == before["lane_topk_emit"] + 1
-    ps, pi = ttopk._fused_block_emit_plain(*tx[:3], k=10, alpha=alpha, blk_n=4096,
+    assert ttopk.LAUNCHES[name] == before[name] + 1
+    ps, pi = ttopk._fused_block_emit_plain(*tx[:3], k=10, alpha=alpha, blk_n=blk_n,
                                            row_scale=tx[3])
     torch.cuda.synchronize()
     assert_topk_match(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("b", [1, 8, 32, 40])
+@pytest.mark.parametrize("b", [1, 8, 24, 32, 40, 128])
 def test_kernels_fold_several_blocks_per_cta(cuda, monkeypatch, dtype, b):
-    """Three blocks per CTA and a shorter last split, as a large corpus
-    gives: K1 folds later blocks into its running lists and both kernels'
-    copy ring crosses block boundaries."""
+    """Nine blocks per CTA and a shorter last split (K1: 16 blocks, splits
+    of 9 and 7), as a large corpus gives: K1's first split bubble-inserts
+    into sorted lists (more than T/2 blocks), its second writes each
+    block's pair to its own slots, and the copy ring crosses block
+    boundaries."""
     monkeypatch.setattr(ttopk, "_split_plan",
-                        lambda corpus, n_blocks, b_tiles: (3, -(-n_blocks // 3)))
+                        lambda n_blocks, b_tiles, sms, ctas_per_sm=1: (9, -(-n_blocks // 9)))
     tx, alpha, _ = torch_scan_inputs(b + 1, b, 32768, 256, dtype, "l2", device=cuda)
     if b <= ttopk.ACC_MAX_BLK_B:
         name = "lane_topk_acc"
@@ -88,6 +102,7 @@ def test_kernels_fold_several_blocks_per_cta(cuda, monkeypatch, dtype, b):
         kernel = ttopk._fused_block_emit
         plain = ttopk._fused_block_emit_plain
         kw = {"blk_n": 4096}
+    name = _kernel_name(name, dtype)
     before = _launches()
     ks, ki = kernel(*tx[:3], k=10, alpha=alpha, row_scale=tx[3], **kw)
     assert ttopk.LAUNCHES[name] == before[name] + 1
@@ -96,15 +111,34 @@ def test_kernels_fold_several_blocks_per_cta(cuda, monkeypatch, dtype, b):
     assert_topk_match(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL[dtype])
 
 
-def test_k1_k_above_candidates_and_all_invalid(cuda):
-    tx, alpha, _ = torch_scan_inputs(3, 3, 4096, 128, "float32", "dot", device=cuda)
+@pytest.mark.parametrize("b,d", [(32, 4096), (256, 2048)])
+def test_large_depth(cuda, b, d):
+    """Deep rows: 32 to 64 k-steps per 128-row tile, so the ring of 8
+    stages wraps several times within one tile."""
+    tx, alpha, _ = torch_scan_inputs(b + d, b, 8192, d, "bfloat16", "dot", device=cuda)
+    if b <= ttopk.ACC_MAX_BLK_B:
+        kernel, plain, kw = ttopk.fused_flat_topk, ttopk._fused_flat_topk_plain, {}
+    else:
+        kernel, plain, kw = ttopk._fused_block_emit, ttopk._fused_block_emit_plain, {
+            "blk_n": 4096}
+    ks, ki = kernel(*tx[:3], k=10, alpha=alpha, row_scale=tx[3], **kw)
+    ps, pi = plain(*tx[:3], k=10, alpha=alpha, row_scale=tx[3], **kw)
+    torch.cuda.synchronize()
+    assert_topk_match(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_k1_k_above_candidates_and_all_invalid(cuda, dtype):
+    # 8 blocks in 8 splits at 132 SMs: k > T merges the splits per lane
+    tx, alpha, _ = torch_scan_inputs(3, 3, 8 * 2048, 128, dtype, "dot", device=cuda)
     k = ttopk.MAX_T_CANDS * 128 + 10
-    ks, ki = ttopk.fused_flat_topk(*tx[:3], k=k, alpha=alpha)
-    ps, pi = ttopk._fused_flat_topk_plain(*tx[:3], k=k, alpha=alpha)
-    assert_topk_match(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL["float32"])
+    ks, ki = ttopk.fused_flat_topk(*tx[:3], k=k, alpha=alpha, row_scale=tx[3])
+    ps, pi = ttopk._fused_flat_topk_plain(*tx[:3], k=k, alpha=alpha, row_scale=tx[3])
+    assert_topk_match(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL[dtype])
     bias = torch.full_like(tx[2], ttopk.NEG_INF)
-    ks, _ = ttopk.fused_flat_topk(tx[0], tx[1], bias, k=5)
-    assert bool((ks <= ttopk.NEG_INF / 2).all())
+    for kk in (5, k):
+        ks, _ = ttopk.fused_flat_topk(tx[0], tx[1], bias, k=kk, row_scale=tx[3])
+        assert bool((ks <= ttopk.NEG_INF / 2).all())
 
 
 def _check_group_cands(kc, pc, qp, corpus, bias, scale, alpha, tol, group_rows):
@@ -210,11 +244,15 @@ def test_filtered_flat_index_card_matches_cpu(cuda):
                       qsq - d_cpu.astype(np.float64) ** 2, s_cpu, TOL["bfloat16"])
 
 
-def test_wrapper_raises_on_bad_cuda_input(cuda):
-    c = torch.zeros(3000, 128, device=cuda)
+@pytest.mark.parametrize("case", ["unpadded", "misaligned"])
+def test_wrapper_raises_on_bad_cuda_input(cuda, case):
+    if case == "unpadded":
+        c = torch.zeros(3000, 128, device=cuda)
+    else:  # a corpus base 2 bytes past a 16-byte boundary: TMA cannot read it
+        c = torch.zeros(4096 * 128 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(4096, 128)
     with pytest.raises(ValueError):
         ttopk.fused_flat_topk(torch.zeros(2, 128, device=cuda), c,
-                              torch.zeros(3000, device=cuda), k=5)
+                              torch.zeros(c.shape[0], device=cuda), k=5)
 
 
 @pytest.mark.parametrize("precision", ["float32", "bfloat16", "int8"])

@@ -81,3 +81,62 @@ def test_rejects_unpadded():
     with pytest.raises(ValueError):
         ttopk.fused_flat_topk(torch.zeros(1, 128), torch.zeros(1000, 128),
                               torch.zeros(1000), k=5)
+
+
+# --------------------------------------------------------------------------
+# The card's split plan (K1, K2): contiguous block ranges per CTA
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b", [1, 8, 32, 256])
+@pytest.mark.parametrize("f32", [False, True])
+def test_grid_plan_covers_every_block_once(b, f32):
+    emit = b > ttopk.ACC_MAX_BLK_B
+    b_pad = min(ttopk.MAX_BLK_B, -(-b // 8) * 8)
+    sms = 132  # H100 SXM
+    for n_blocks in (1, 7, 131, 132, 133, 256, 512, 1000):
+        tile_b, q_tiles, per, splits = ttopk._grid_plan(emit, b_pad, n_blocks, sms, f32)
+        assert q_tiles * tile_b >= b_pad > (q_tiles - 1) * tile_b
+        covered = []
+        for s in range(splits):
+            blocks = list(range(s * per, min(n_blocks, (s + 1) * per)))
+            assert blocks, f"split {s} of {splits} is empty"
+            covered += blocks
+        assert covered == list(range(n_blocks))
+        ctas = ttopk._CTAS_PER_SM_F32 if f32 else ttopk._CTAS_PER_SM
+        assert q_tiles * splits <= sms * ctas + q_tiles - 1
+        if not f32 and not emit:
+            # one query tile holds the whole batch: the corpus is read once
+            assert q_tiles == 1 and splits <= sms
+    if not f32:
+        # 1M rows: K1 at 2048-row blocks, K2 at 4096-row blocks
+        n_blocks = (1 << 20) // (4096 if emit else 2048)
+        _, q_tiles, per, splits = ttopk._grid_plan(emit, b_pad, n_blocks, sms, False)
+        assert (q_tiles, per, splits) == ((4, 8, 32) if emit else (1, 4, 128))
+
+
+@pytest.mark.parametrize("dtype,k", [("bfloat16", 5), ("bfloat16", 10), ("int8", 20),
+                                     ("bfloat16", 2058)])
+def test_split_lists_model_matches_reference(dtype, k):
+    # a plain model of what K1 leaves at the card's split plan (3 splits of
+    # 2, 2, 1 blocks; each split's per-lane top-T, in a list of the
+    # kernel's width: all 4 candidates of a 2-block split), merged as the
+    # wrapper merges them, against the JAX Pallas kernel
+    b, n = 3, 5 * 2048
+    jx, tx, alpha = scan_inputs(130 + k, b, n, 128, dtype, "l2")
+    q, c, bias, scale = tx
+    _, blk_b, t_cands, _ = ttopk._acc_plan(q, c, k, None)
+    _, _, per, splits = ttopk._grid_plan(False, blk_b, n // 2048, 3, False)
+    assert (per, splits) == (2, 3)
+    qp = ttopk._pad_queries(q, blk_b, c.dtype)
+    cs, ci = ttopk._block_cands_plain(qp, c, bias, scale, alpha, 2048)
+    w = 2 * 128  # candidates per block
+    width = ttopk._list_width(per, t_cands)
+    lists = [ttopk._running_top_t(cs[:, s * per * w:(s + 1) * per * w],
+                                  ci[:, s * per * w:(s + 1) * per * w], width)
+             for s in range(splits)]
+    out_s = torch.stack([ls for ls, _ in lists], 1).view(blk_b, splits * width, 128)
+    out_i = torch.stack([li for _, li in lists], 1).view(blk_b, splits * width, 128)
+    ts, ti = ttopk._topk_pad(*ttopk._merge_split_lists(out_s, out_i, t_cands, k), k)
+    js, ji = jtopk.fused_flat_topk(jx[0], jx[1], jx[2], k=k, alpha=alpha, row_scale=jx[3])
+    assert_topk_match(ts[:b], ti[:b], js, ji, TOL[dtype])

@@ -1,7 +1,11 @@
-// Lane top-k scan kernels for Hopper (sm_90a): the port's K1, K2, K5, K6.
+// Lane top-k scan kernels for Hopper (sm_90a): the port's K5 and K6, and
+// K1 and K2 for f32 corpora (`lane_topk_acc_f32`, `lane_topk_emit_f32`).
+// bf16 and int8 corpora take K1 and K2 of lane_scan.cuh (TMA, wgmma, warp
+// specialisation); f32 ones stay on this template's f32 FMA, because TF32
+// would break their exactness.
 //
-// K1 `lane_topk_acc` replaces tostore_tpu/ops/topk.py::_lane_topk_kernel
-// (called by fused_flat_topk); K2 `lane_topk_emit` replaces
+// K1 `lane_topk_acc_f32` replaces tostore_tpu/ops/topk.py::_lane_topk_kernel
+// (called by fused_flat_topk); K2 `lane_topk_emit_f32` replaces
 // tostore_tpu/ops/topk.py::_lane_topk_block_kernel (called by
 // _fused_block_emit); K5 `lane_topk_group` replaces
 // tostore_tpu/ops/topk.py::_lane_topk_group_kernel (called by
@@ -30,17 +34,17 @@
 // 1M x 768 bf16, so about 0.46 ms of HBM time is the floor and the dot is
 // far below the tensor cores' rate. K2 and K5 at B = 256 do 403 GFLOP per
 // scan, close to the ridge. The design:
-//   - bf16 and int8 corpora run on the tensor cores through WMMA (bf16
-//     in, f32 accumulate; m8n32k16 for an 8-query tile, m16n16k16 above;
-//     int8 rows widen exactly to bf16 in shared memory); f32 corpora use
-//     f32 FMA, because TF32 would break their exactness.
+//   - bf16 and int8 corpora (K5, K6) run on the tensor cores through WMMA
+//     (bf16 in, f32 accumulate, m16n16k16; int8 rows widen exactly to bf16
+//     in shared memory); f32 corpora use f32 FMA, because TF32 would break
+//     their exactness.
 //   - The corpus streams through a ring of STAGES shared-memory tiles
 //     filled by cp.async, so several tiles are in flight per CTA while the
 //     current one is multiplied: what a memory-bound scan needs. A CTA's
 //     blocks are contiguous rows, so the ring runs across 128-row tiles and
 //     blocks without draining.
-//   - Each CTA serves BM queries (K1: 8 for a batch of up to 8, else 16;
-//     K2, K5, K6: 32), so the corpus is read once per query tile; query
+//   - Each CTA serves BM queries (f32 K1: 8 for a batch of up to 8, else
+//     16; f32 K2, K5, K6: 32), so the corpus is read once per query tile; query
 //     tiles of one split are adjacent in the launch order and meet the same
 //     corpus rows in L2. Registers bound BM: two CTAs per SM leave 128 a
 //     thread, and each (query, lane) pair a thread selects for costs five.
@@ -198,11 +202,10 @@ lane_topk_kernel(const typename Cfg<CT>::Q* __restrict__ q, const CT* __restrict
   using L = Layout<CT, BM>;
   constexpr bool MMA = sizeof(CT) != 4;
   constexpr int HB = BM / GROUPS;  // query rows per thread in the selection
-  // WMMA fragment shape: m8n32k16 for an 8-row query tile (4 warps score
-  // the 128-row tile), m16n16k16 otherwise (8 warps); MF query row tiles
-  constexpr int FM = BM == 8 ? 8 : 16, FN = BM == 8 ? 32 : 16;
+  // WMMA m16n16k16 (bf16 and int8: K5, BM = 32): each of the 8 warps
+  // scores 16 corpus rows for the MF query row tiles
+  constexpr int FM = 16, FN = 16;
   constexpr int MF = BM / FM;
-  constexpr int MMA_WARPS = LANE / FN;
   extern __shared__ __align__(128) unsigned char smem[];
   float* ss = reinterpret_cast<float*>(smem + L::S_OFF);
 
@@ -210,8 +213,6 @@ lane_topk_kernel(const typename Cfg<CT>::Q* __restrict__ q, const CT* __restrict
   const int lane = tid % LANE;
   const int group = tid / LANE;
   const int warp = tid / 32;
-  // warps that hold WMMA fragments (all 8 unless the query tile has 8 rows)
-  const bool scorer = MMA_WARPS == THREADS / 32 || warp < MMA_WARPS;
   const int b0 = blockIdx.x * BM;
   const int split = blockIdx.y;
   const int blk_lo = split * blocks_per_split;
@@ -299,17 +300,15 @@ lane_topk_kernel(const typename Cfg<CT>::Q* __restrict__ q, const CT* __restrict
       } else {
         cs = reinterpret_cast<const __nv_bfloat16*>(stage + L::Q_STAGE);
       }
-      if (scorer) {
 #pragma unroll
-        for (int kk = 0; kk < C::KC; kk += 16) {
-          wmma::fragment<wmma::matrix_b, FM, FN, 16, __nv_bfloat16, wmma::col_major> bf;
-          wmma::load_matrix_sync(bf, cs + warp * FN * C::KP + kk, C::KP);
+      for (int kk = 0; kk < C::KC; kk += 16) {
+        wmma::fragment<wmma::matrix_b, FM, FN, 16, __nv_bfloat16, wmma::col_major> bf;
+        wmma::load_matrix_sync(bf, cs + warp * FN * C::KP + kk, C::KP);
 #pragma unroll
-          for (int m = 0; m < MF; ++m) {
-            wmma::fragment<wmma::matrix_a, FM, FN, 16, __nv_bfloat16, wmma::row_major> af;
-            wmma::load_matrix_sync(af, qs + m * FM * C::KP + kk, C::KP);
-            wmma::mma_sync(acc[m], af, bf, acc[m]);
-          }
+        for (int m = 0; m < MF; ++m) {
+          wmma::fragment<wmma::matrix_a, FM, FN, 16, __nv_bfloat16, wmma::row_major> af;
+          wmma::load_matrix_sync(af, qs + m * FM * C::KP + kk, C::KP);
+          wmma::mma_sync(acc[m], af, bf, acc[m]);
         }
       }
     } else {
@@ -334,13 +333,10 @@ lane_topk_kernel(const typename Cfg<CT>::Q* __restrict__ q, const CT* __restrict
 
     // a 128-row tile is scored: raw dot products to the score tile
     if constexpr (MMA) {
-      if (scorer) {
 #pragma unroll
-        for (int m = 0; m < MF; ++m) {
-          wmma::store_matrix_sync(ss + m * FM * SP + warp * FN, acc[m], SP,
-                                  wmma::mem_row_major);
-          wmma::fill_fragment(acc[m], 0.0f);
-        }
+      for (int m = 0; m < MF; ++m) {
+        wmma::store_matrix_sync(ss + m * FM * SP + warp * FN, acc[m], SP, wmma::mem_row_major);
+        wmma::fill_fragment(acc[m], 0.0f);
       }
     } else {
 #pragma unroll
@@ -725,17 +721,18 @@ int launch_pipe(const void* q, const void* corpus, const float* bias, float alph
 
 }  // namespace
 
-// dtype: 0 = float32 (q float32), 1 = bfloat16 (q bfloat16), 2 = int8 (q
-// bfloat16). scale may be null. tile_b: query rows per CTA, 8 (B_pad = 8)
-// or 16; t_cands: 8 or 16. out_s/out_i: [b_pad, n_splits, t_cands, 128].
-extern "C" int lane_topk_acc(const void* q, const void* corpus, int dtype, const float* bias,
-                             const float* scale, float alpha, int b_pad, int d, int blk_n,
-                             int n_blocks, int blocks_per_split, int n_splits, int tile_b,
-                             int t_cands, float* out_s, int32_t* out_i, void* stream) {
+// f32 corpora (q float32). scale may be null. tile_b: query rows per CTA,
+// 8 (B_pad = 8) or 16; t_cands: 8 or 16. out_s/out_i: [b_pad, n_splits,
+// t_cands, 128].
+extern "C" int lane_topk_acc_f32(const void* q, const void* corpus, const float* bias,
+                                 const float* scale, float alpha, int b_pad, int d, int blk_n,
+                                 int n_blocks, int blocks_per_split, int n_splits, int tile_b,
+                                 int t_cands, float* out_s, int32_t* out_i, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LANE_TOPK_ACC(BM, T)                                                                \
   if (tile_b == BM && t_cands == T)                                                          \
-    return dispatch<BM, T, false>(q, corpus, dtype, bias, scale, alpha, b_pad, d, blk_n,     \
-                                  n_blocks, blocks_per_split, n_splits, out_s, out_i, stream);
+    return launch<float, BM, T, false>(q, corpus, bias, scale, alpha, b_pad, d, blk_n,       \
+                                       n_blocks, blocks_per_split, n_splits, out_s, out_i, s);
   LANE_TOPK_ACC(8, 8)
   LANE_TOPK_ACC(8, 16)
   LANE_TOPK_ACC(16, 8)
@@ -744,14 +741,15 @@ extern "C" int lane_topk_acc(const void* q, const void* corpus, int dtype, const
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// 32 query rows per CTA. out_s/out_i: [b_pad, n_blocks * 256]; block j's
-// lane l top-1 at j*256 + l, top-2 at j*256 + 128 + l.
-extern "C" int lane_topk_emit(const void* q, const void* corpus, int dtype, const float* bias,
-                              const float* scale, float alpha, int b_pad, int d, int blk_n,
-                              int n_blocks, int blocks_per_split, int n_splits,
-                              float* out_s, int32_t* out_i, void* stream) {
-  return dispatch<32, 0, false>(q, corpus, dtype, bias, scale, alpha, b_pad, d, blk_n, n_blocks,
-                                blocks_per_split, n_splits, out_s, out_i, stream);
+// f32 corpora, 32 query rows per CTA. out_s/out_i: [b_pad, n_blocks * 256];
+// block j's lane l top-1 at j*256 + l, top-2 at j*256 + 128 + l.
+extern "C" int lane_topk_emit_f32(const void* q, const void* corpus, const float* bias,
+                                  const float* scale, float alpha, int b_pad, int d, int blk_n,
+                                  int n_blocks, int blocks_per_split, int n_splits,
+                                  float* out_s, int32_t* out_i, void* stream) {
+  return launch<float, 32, 0, false>(q, corpus, bias, scale, alpha, b_pad, d, blk_n, n_blocks,
+                                     blocks_per_split, n_splits, out_s, out_i,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // 32 query rows per CTA, one CTA per (query tile, group of gsz blocks; the

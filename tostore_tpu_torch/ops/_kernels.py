@@ -38,9 +38,12 @@ _F = ctypes.c_float
 # C signatures of the entry points in csrc/: pointers and the stream are
 # c_void_p
 _SIGNATURES = {
-    # lane_topk.cu (K1, K2, K5, K6)
+    # lane_scan_acc.cu, lane_scan_emit.cu (K1, K2: bf16 and int8 corpora)
     "lane_topk_acc": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "lane_topk_emit": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "lane_topk_emit": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # lane_topk.cu (K1, K2 for f32 corpora; K5, K6)
+    "lane_topk_acc_f32": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "lane_topk_emit_f32": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "lane_topk_group": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
     "lane_topk_group_pipe": [_P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
     # ivf_probe.cu (K3, K4)

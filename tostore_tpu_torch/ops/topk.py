@@ -6,11 +6,13 @@ and merge the candidates with torch.topk. Dispatched by
 `flat_search(mode=...)`:
 
   - `fused_flat_topk`: 2048-row blocks, per-lane top-2 folded into a
-    running per-lane top-T (B <= 32; kernel K1, csrc/lane_topk.cu) or
-    emitted per block (B > 32; kernel K2). On a CUDA tensor these launch
-    the hand-written Hopper kernels; on a CPU tensor they run their plain
-    PyTorch versions (`_fused_flat_topk_plain`, `_fused_block_emit_plain`),
-    which give the same candidates.
+    running per-lane top-T (B <= 32; kernel K1) or emitted per block
+    (B > 32; kernel K2). On a CUDA tensor these launch the hand-written
+    Hopper kernels (bf16 and int8 corpora: csrc/lane_scan.cuh, TMA +
+    wgmma; f32 corpora: the f32 FMA kernels of csrc/lane_topk.cu); on a
+    CPU tensor they run their plain PyTorch versions
+    (`_fused_flat_topk_plain`, `_fused_block_emit_plain`), which give the
+    same candidates.
   - `flat_topk_lane`: the same per-(chunk, lane) top-2 in plain PyTorch
     (chunked matmul + per-lane argmax). The JAX package runs it in XLA
     outside any kernel.
@@ -61,19 +63,25 @@ MIN_FUSED_N = 64 * DEFAULT_BLK_N
 # The accumulating kernel (K1) serves query blocks up to this size.
 ACC_MAX_BLK_B = 32
 
-# Query rows per CTA of K1 and K2 (csrc/lane_topk.cu instantiates these):
-# K1 takes 8 when the padded batch is 8 (B <= 8, the latency case: no
-# padding rows scored or selected), else 16.
-ACC_TILE_B = (8, 16)
-EMIT_TILE_B = 32
-# CTAs launched per SM for a scan: the kernels fit two per SM (registers
-# and the shared-memory ring), so one wave covers the corpus.
-_CTAS_PER_SM = 2
+# Query rows per CTA of K1 and K2. bf16 and int8 corpora (csrc/lane_scan.cuh):
+# K1 serves the whole padded batch (8, 16, 24 or 32 queries) in one CTA, so
+# the corpus is read once; K2 takes 64 queries per CTA. f32 corpora
+# (csrc/lane_topk.cu): K1 takes 8 queries when the padded batch is 8, else
+# 16; K2 takes 32.
+ACC_TILE_B = (8, 16, 24, 32)
+EMIT_TILE_B = 64
+ACC_TILE_B_F32 = (8, 16)
+EMIT_TILE_B_F32 = 32
+# CTAs per SM of a scan: the TMA ring of lane_scan.cuh fills an SM's shared
+# memory, so one persistent CTA per SM walks a contiguous range of blocks;
+# the f32 kernels fit two per SM.
+_CTAS_PER_SM = 1
+_CTAS_PER_SM_F32 = 2
 
 # Launches of each hand-written kernel, counted where the wrapper launches
 # it; a run reads them to show which kernels its path went through.
-LAUNCHES = {"lane_topk_acc": 0, "lane_topk_emit": 0, "lane_topk_group": 0,
-            "lane_topk_group_pipe": 0}
+LAUNCHES = {"lane_topk_acc": 0, "lane_topk_emit": 0, "lane_topk_acc_f32": 0,
+            "lane_topk_emit_f32": 0, "lane_topk_group": 0, "lane_topk_group_pipe": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -218,69 +226,130 @@ def _check_kernel_inputs(qp, corpus, bias, row_scale, blk_n):
             raise ValueError(f"bias/row_scale must be float32 [{n}]")
 
 
-def _split_plan(corpus, n_blocks: int, b_tiles: int):
-    """Blocks per CTA so the grid holds about _CTAS_PER_SM CTAs per SM."""
-    sms = torch.cuda.get_device_properties(corpus.device).multi_processor_count
-    want = max(1, -(-sms * _CTAS_PER_SM // b_tiles))
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _split_plan(n_blocks: int, b_tiles: int, sms: int, ctas_per_sm: int = _CTAS_PER_SM):
+    """(blocks per split, splits): contiguous block ranges, the last one
+    possibly shorter, so that b_tiles query tiles x splits CTAs fill about
+    ctas_per_sm CTAs per SM."""
+    want = max(1, -(-sms * ctas_per_sm // b_tiles))
     per = max(1, -(-n_blocks // want))
     return per, -(-n_blocks // per)
 
 
-def _lane_topk_acc_cuda(qp, corpus, bias, row_scale, alpha, blk_n, t_cands, k):
-    """K1 on the card: candidates [B_pad, W] whose top-k is the reference's.
+def _grid_plan(emit: bool, b_pad: int, n_blocks: int, sms: int, f32: bool):
+    """(query rows per CTA, query tiles, blocks per split, splits) of K1
+    (emit False) or K2 on a card with `sms` SMs; the grid is query tiles x
+    splits CTAs. K1 on bf16 / int8 serves the whole padded batch in one
+    tile."""
+    if f32:
+        tile_b = EMIT_TILE_B_F32 if emit else (
+            ACC_TILE_B_F32[0] if b_pad <= ACC_TILE_B_F32[0] else ACC_TILE_B_F32[1])
+        ctas = _CTAS_PER_SM_F32
+    else:
+        if not emit and b_pad not in ACC_TILE_B:
+            raise ValueError(f"K1 takes a padded batch in {ACC_TILE_B}, got {b_pad}")
+        tile_b = EMIT_TILE_B if emit else b_pad
+        ctas = _CTAS_PER_SM
+    q_tiles = -(-b_pad // tile_b)
+    return (tile_b, q_tiles) + _split_plan(n_blocks, q_tiles, sms, ctas)
 
-    Each split of the block range keeps its own per-lane top-T. For
-    k <= T the top-k of all splits' lists together is the top-k of the
-    per-lane top-T lists (a lane cannot hold more than k <= T of the
-    top-k), so the lists go to the final top-k as they are; for k > T the
-    splits are first merged per lane into the reference's per-lane top-T,
-    laid out t-major as the Pallas kernel emits it."""
-    _check_kernel_inputs(qp, corpus, bias, row_scale, blk_n)
-    b_pad, d = qp.shape
-    n_blocks = corpus.shape[0] // blk_n
-    tile_b = ACC_TILE_B[0] if b_pad <= ACC_TILE_B[0] else ACC_TILE_B[1]
-    per, splits = _split_plan(corpus, n_blocks, -(-b_pad // tile_b))
-    out_s = torch.empty((b_pad, splits * t_cands, LANE), dtype=torch.float32,
-                        device=corpus.device)
-    out_i = torch.empty((b_pad, splits * t_cands, LANE), dtype=torch.int32,
-                        device=corpus.device)
-    lib = _kernels.library()
-    with torch.cuda.device(corpus.device):
-        err = lib.lane_topk_acc(
-            qp.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
-            bias.data_ptr(), row_scale.data_ptr() if row_scale is not None else None,
-            float(alpha), b_pad, d, blk_n, n_blocks, per, splits, tile_b, t_cands,
-            out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(corpus.device).cuda_stream,
-        )
-    _kernels.check("lane_topk_acc", err)
-    LAUNCHES["lane_topk_acc"] += 1
-    if k > t_cands and splits > 1:
+
+def _list_width(per: int, t_cands: int) -> int:
+    """Entries per (query, split, lane) list of K1 on bf16 / int8: a split
+    of at most T/2 blocks keeps every block's pair (unsorted), a longer one
+    the sorted top-T."""
+    return 2 * per if 2 * per <= t_cands else t_cands
+
+
+def _merge_split_lists(out_s, out_i, t_cands: int, k: int):
+    """K1's per-split lists [B_pad, splits * W, 128], each holding its
+    split's per-lane top-T (W >= T entries, or all of the split's
+    candidates) -> candidates [B_pad, width] whose top-k is the
+    reference's. For k <= T the top-k of all splits' lists together is the
+    top-k of the per-lane top-T lists (a lane cannot hold more than k <= T
+    of the top-k), so the lists go to the final top-k as they are; for
+    k > T the splits are first merged per lane into the reference's
+    per-lane top-T, laid out t-major as the Pallas kernel emits it."""
+    b_pad = out_s.shape[0]
+    if k > t_cands and out_s.shape[1] > t_cands:
         out_s, pos = torch.topk(out_s, t_cands, dim=1)
         out_i = torch.gather(out_i, 1, pos)
     return out_s.reshape(b_pad, -1), out_i.reshape(b_pad, -1)
+
+
+def _scale_ptr(row_scale):
+    return row_scale.data_ptr() if row_scale is not None else None
+
+
+def _lane_topk_acc_cuda(qp, corpus, bias, row_scale, alpha, blk_n, t_cands, k):
+    """K1 on the card: candidates [B_pad, W] whose top-k is the reference's.
+    Each split of the block range keeps its own per-lane top-T lists
+    (`_merge_split_lists`)."""
+    _check_kernel_inputs(qp, corpus, bias, row_scale, blk_n)
+    b_pad, d = qp.shape
+    n, n_blocks = corpus.shape[0], corpus.shape[0] // blk_n
+    f32 = corpus.dtype == torch.float32
+    tile_b, _, per, splits = _grid_plan(False, b_pad, n_blocks, _sm_count(corpus.device), f32)
+    width = t_cands if f32 else _list_width(per, t_cands)
+    out_s = torch.empty((b_pad, splits * width, LANE), dtype=torch.float32,
+                        device=corpus.device)
+    out_i = torch.empty((b_pad, splits * width, LANE), dtype=torch.int32,
+                        device=corpus.device)
+    lib = _kernels.library()
+    with torch.cuda.device(corpus.device):
+        stream = torch.cuda.current_stream(corpus.device).cuda_stream
+        if f32:
+            name = "lane_topk_acc_f32"
+            err = lib.lane_topk_acc_f32(
+                qp.data_ptr(), corpus.data_ptr(), bias.data_ptr(), _scale_ptr(row_scale),
+                float(alpha), b_pad, d, blk_n, n_blocks, per, splits, tile_b, t_cands,
+                out_s.data_ptr(), out_i.data_ptr(), stream)
+        else:
+            name = "lane_topk_acc"
+            err = lib.lane_topk_acc(
+                qp.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], bias.data_ptr(),
+                _scale_ptr(row_scale), float(alpha), b_pad, d, n, blk_n, n_blocks, per,
+                splits, t_cands, out_s.data_ptr(), out_i.data_ptr(), stream)
+    _kernels.check(name, err)
+    LAUNCHES[name] += 1
+    return _merge_split_lists(out_s, out_i, t_cands, k)
 
 
 def _lane_topk_emit_cuda(qp, corpus, bias, row_scale, alpha, blk_n):
     """K2 on the card: every block's per-lane top-2, [B_pad, n_blocks*256]."""
     _check_kernel_inputs(qp, corpus, bias, row_scale, blk_n)
     b_pad, d = qp.shape
-    n_blocks = corpus.shape[0] // blk_n
-    per, splits = _split_plan(corpus, n_blocks, -(-b_pad // EMIT_TILE_B))
+    n, n_blocks = corpus.shape[0], corpus.shape[0] // blk_n
+    f32 = corpus.dtype == torch.float32
+    tile_b, q_tiles, per, splits = _grid_plan(True, b_pad, n_blocks,
+                                              _sm_count(corpus.device), f32)
     cw = n_blocks * CANDS_PER_LANE * LANE
     out_s = torch.empty((b_pad, cw), dtype=torch.float32, device=corpus.device)
     out_i = torch.empty((b_pad, cw), dtype=torch.int32, device=corpus.device)
     lib = _kernels.library()
     with torch.cuda.device(corpus.device):
-        err = lib.lane_topk_emit(
-            qp.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
-            bias.data_ptr(), row_scale.data_ptr() if row_scale is not None else None,
-            float(alpha), b_pad, d, blk_n, n_blocks, per, splits,
-            out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(corpus.device).cuda_stream,
-        )
-    _kernels.check("lane_topk_emit", err)
-    LAUNCHES["lane_topk_emit"] += 1
+        stream = torch.cuda.current_stream(corpus.device).cuda_stream
+        if f32:
+            name = "lane_topk_emit_f32"
+            err = lib.lane_topk_emit_f32(
+                qp.data_ptr(), corpus.data_ptr(), bias.data_ptr(), _scale_ptr(row_scale),
+                float(alpha), b_pad, d, blk_n, n_blocks, per, splits,
+                out_s.data_ptr(), out_i.data_ptr(), stream)
+        else:
+            name = "lane_topk_emit"
+            # the kernel reads whole 64-query tiles: pad the rows with zeros
+            q_rows = q_tiles * tile_b
+            if q_rows != b_pad:
+                qp = torch.nn.functional.pad(qp, (0, 0, 0, q_rows - b_pad))
+            err = lib.lane_topk_emit(
+                qp.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], bias.data_ptr(),
+                _scale_ptr(row_scale), float(alpha), q_rows, b_pad, d, n, blk_n, n_blocks,
+                per, splits, out_s.data_ptr(), out_i.data_ptr(), stream)
+    _kernels.check(name, err)
+    LAUNCHES[name] += 1
     return out_s, out_i
 
 
@@ -479,8 +548,8 @@ def _lane_topk_group_cuda(qp, corpus, bias, row_scale, alpha, blk_n, gsz):
     with torch.cuda.device(corpus.device):
         err = lib.lane_topk_group(
             qp.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
-            bias.data_ptr(), row_scale.data_ptr() if row_scale is not None else None,
-            float(alpha), b_pad, d, blk_n, n_blocks, gsz,
+            bias.data_ptr(), _scale_ptr(row_scale), float(alpha), b_pad, d, blk_n,
+            n_blocks, gsz,
             out_s.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(corpus.device).cuda_stream,
         )
