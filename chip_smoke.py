@@ -42,9 +42,12 @@ imports nothing of JAX or tostore_tpu. Phases:
      largest other kernels of the call.
   5. K3 (ivf_bucket_probe) and K4 (ivf_adc) against their plain versions
      on CUDA tensors at the 1M / C = 1024 layout (C_exp = 1024, cap =
-     1984, D = 768), B = 1, 8, 64, P = 16, dead entries included: K3 for
-     f32, bf16 and int8 + scale rows, dot / l2 / cosine; K4 for residual
-     l2 and dot tables, M = 96 / K = 256 and M = 192 / K = 16 packed.
+     1984, D = 768), B = 1, 8, 64 with random probe ids and B = 64 queries
+     probing 16 of the same 32 buckets (shared buckets), P = 16, dead
+     entries included: K3 for f32, bf16 and int8 + scale rows, dot / l2 /
+     cosine; K4 for residual l2 and dot tables, M = 96 / K = 256 and M =
+     192 / K = 16 packed; their grouping pre-pass (the pairs sorted by
+     bucket) against its plain version, a stable sort, exactly.
   6. The IVF path at size, after the flat indexes are freed: 1,000,000
      seeded clustered rows (natural modes x3 + unit noise) at 768 dims,
      bf16, in IVFVectorIndex(768, "l2", "bfloat16", num_clusters=1024,
@@ -56,9 +59,15 @@ imports nothing of JAX or tostore_tpu. Phases:
      against mode="exact" >= 0.95 raw / 0.85 PQ, no deleted pk back, and
      shared pks' scores within the bf16 tolerance. Then K3 and K4 against
      their plain versions on the indexes' own buckets, codes, bias and
-     probes, median ms of each at B = 8 and 64, and search_arrays probe
-     against the flat scan at B = 8 to 256 (host clock); with --profile,
-     the device-time breakdown of a probe call.
+     probes; at B = 8 and 64, the L2 flushed before each timed call, the
+     median ms of each call (CUDA events) and of its plain version, the
+     kernel alone and its grouping pre-pass (torch.profiler), bound and
+     share (K4's tables at 2 bytes an entry, with the share under the
+     earlier f32-table bound beside it, and the shared-memory wavefronts
+     of its table lookups), and K3's product_ms (torch.mm of the distinct probed
+     buckets' rows with the queries); then search_arrays probe against
+     the flat scan at B = 8 to 256 (host clock); with --profile, the
+     device-time breakdown of a probe call.
   7. K5 (lane_topk_group) and K6 (lane_topk_group_pipe) against their
      plain versions: first on random CUDA tensors at N = 131072 (f32, bf16
      and int8, int8 with row scales for K5 only; l2 and dot; B = 40, 128,
@@ -66,9 +75,9 @@ imports nothing of JAX or tostore_tpu. Phases:
      gsz), then on phase 2's l2 index (capacity 1,048,576, default gsz 32:
      16 groups). Candidates within twice the phase-1 tolerance, a row that
      differs on a near-tie checked for its bucket and its score, and the
-     top-k as in phase 1. Then median ms of each kernel beside its plain
-     version at B = 128 and 256, and top-10 agreement with the exact scan
-     (>= 0.999).
+     top-k as in phase 1. Then median ms of each kernel's call beside its
+     plain version at B = 128 and 256, each kernel alone (torch.profiler),
+     and top-10 agreement with the exact scan (>= 0.999).
   8. Hybrid filtered search on the main path: a float column `price`
      (uniform [0, 1)) and an int column `ts` (epoch ms 1.7e12 + pk, every
      97th None) written through `filter_columns.update` into phase 2's l2
@@ -89,8 +98,9 @@ Prints the card's name and power limit, the torch and CUDA versions, the
 build time, a JSON line of the kernels (each with its launches on its
 path, max_abs_err, ms, plain_ms, bound_ms / bound_by computed from this
 run's shapes, library_ms, null where no single PyTorch call computes the
-function, and product_ms for the lane scans), and last `{"ok": true,
-...}`. Any failure raises and exits non-zero.
+function, kernel_ms where the kernel alone was timed, and product_ms for
+the lane scans and K3), and last `{"ok": true, ...}`. Any failure raises
+and exits non-zero.
 """
 
 from __future__ import annotations
@@ -335,11 +345,20 @@ def _check_shared_dists(metric, q, pks, dist, epks, edist, shift=None):
     return worst
 
 
-def _median_ms(fn, reps=15):
+def _l2_flush(dev):
+    """A thunk that evicts the 50 MB L2 by writing 64 MB, for timing a
+    call that meets its data cold, as a search meets its buckets."""
+    buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    return buf.zero_
+
+
+def _median_ms(fn, reps=15, flush=None):
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -350,9 +369,10 @@ def _median_ms(fn, reps=15):
     return float(np.median(times))
 
 
-def _kernel_device_ms(fn, calls=5):
-    """Device time of the lane-scan kernels in one call of fn, from
-    torch.profiler over `calls` calls."""
+def _kernel_device_ms(fn, calls=5, names=("lane_scan", "lane_topk"), flush=None):
+    """Device time of the port's kernels (those whose names hold one of
+    `names`) in one call of fn, from torch.profiler over `calls` calls,
+    each after `flush` where one is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -360,11 +380,12 @@ def _kernel_device_ms(fn, calls=5):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
+            if flush is not None:
+                flush()
             fn()
         torch.cuda.synchronize()
     us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA
-             and ("lane_scan" in ev.key or "lane_topk" in ev.key))
+             if ev.device_type == DeviceType.CUDA and any(n in ev.key for n in names))
     return us / calls / 1e3
 
 
@@ -483,6 +504,26 @@ def phase_profile(idx, queries, T):
 IVF_C, IVF_CAP, IVF_D, IVF_P = 1024, 1984, 768, 16
 IVF_B = (1, 8, 64)
 ADC_CONFIGS = ((96, 256, False), (192, 16, True))  # (M, K, nibble-packed)
+SHARED = (64, 32)  # shared-bucket inputs: B = 64 queries probing 16 of the same 32 buckets
+
+
+def _check_grouping(IP, probes, c):
+    """K3/K4's grouping pre-pass against its plain version (a stable sort
+    by id): the same ids and pair order, exactly."""
+    got, want = IP._group_pairs_cuda(probes, c), IP._group_pairs_plain(probes, c)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("the grouping pre-pass differs from its plain version")
+
+
+def _probe_cases(gen, c, p, bs, dev):
+    """(label, probes) of phase 5: random ids at each B, then SHARED."""
+    cases = [(f"B={b}", torch.randint(0, c, (b, p), generator=gen, device=dev,
+                                      dtype=torch.int32)) for b in bs]
+    b, pool = SHARED
+    buckets = torch.randperm(c, generator=gen, device=dev)[:pool]
+    pick = torch.rand((b, pool), generator=gen, device=dev).argsort(dim=1)[:, :p]
+    cases.append((f"B={b} sharing {pool} buckets", buckets[pick].to(torch.int32)))
+    return cases
 
 
 def _dead_bias(gen, base, dev):
@@ -549,7 +590,9 @@ def phase_ivf_kernels(dev, IP, c=IVF_C, cap=IVF_CAP, d=IVF_D, p=IVF_P, bs=IVF_B,
     * scale), the scale of a dot product's rounding error: a score near 0
     is a sum that cancelled, and its error does not shrink with it. K4:
     residual l2 and dot tables, M = 96 / K = 256 and M = 192 / K = 16
-    packed, within 1e-5 of sum_m |tab|. Dead entries in both."""
+    packed, within 1e-5 of sum_m |tab|. Dead entries in both. Each on
+    random probe ids at every B and on SHARED inputs, where queries share
+    buckets and the kernels read each once for all of them."""
     from tostore_tpu_torch.ops.runtime import score_dtype
     from tostore_tpu_torch.vector.pq import adc_tables_probed
 
@@ -561,13 +604,12 @@ def phase_ivf_kernels(dev, IP, c=IVF_C, cap=IVF_CAP, d=IVF_D, p=IVF_P, bs=IVF_B,
             v, bias, scale = _bucket_store(gen, dtype, metric, dev, c, cap, d)
             v_abs, zeros = v.abs(), torch.zeros_like(bias)
             alpha = 2.0 if metric == "l2" else 1.0
-            for b in bs:
-                q = torch.randn((b, d), generator=gen, device=dev)
+            for label, probes in _probe_cases(gen, c, p, bs, dev):
+                q = torch.randn((probes.shape[0], d), generator=gen, device=dev)
                 if metric == "cosine":
                     q = q / q.norm(dim=1, keepdim=True)
                 qf = (q * alpha).to(score_dtype(dtype))
-                probes = torch.randint(0, c, (b, p), generator=gen, device=dev,
-                                       dtype=torch.int32)
+                _check_grouping(IP, probes, c)
                 kernel, plain = _k3_pair(IP, qf, probes, v, bias, scale)
                 got, want = kernel(), plain()
                 mag = IP._bucket_probe_scores_plain(qf.abs(), probes, v_abs, zeros, scale)
@@ -575,7 +617,7 @@ def phase_ivf_kernels(dev, IP, c=IVF_C, cap=IVF_CAP, d=IVF_D, p=IVF_P, bs=IVF_B,
                 lim = TOL[dtype] * mag.clamp(min=1.0)
                 err = _check_scores("ivf_bucket_probe", got, want, lim)
                 errs["ivf_bucket_probe"] = max(errs["ivf_bucket_probe"], err)
-                print(f"phase5 ivf_bucket_probe {str(dtype)[6:]} {metric} B={b}: "
+                print(f"phase5 ivf_bucket_probe {str(dtype)[6:]} {metric} {label}: "
                       f"max_abs_err {err}", flush=True)
             del v, v_abs, bias, scale
     for m, k, packed in adc_configs:
@@ -586,10 +628,9 @@ def phase_ivf_kernels(dev, IP, c=IVF_C, cap=IVF_CAP, d=IVF_D, p=IVF_P, bs=IVF_B,
         codebooks = torch.randn((m, k, d // m), generator=gen, device=dev)
         cents = torch.randn((c, d), generator=gen, device=dev)
         for metric in ("l2", "dot"):
-            for b in bs:
-                q = torch.randn((b, d), generator=gen, device=dev)
-                probes = torch.randint(0, c, (b, p), generator=gen, device=dev,
-                                       dtype=torch.int32)
+            for label, probes in _probe_cases(gen, c, p, bs, dev):
+                q = torch.randn((probes.shape[0], d), generator=gen, device=dev)
+                _check_grouping(IP, probes, c)
                 tabs, _ = adc_tables_probed(codebooks, q, cents, probes, metric=metric)
                 kernel, plain = _k4_pair(IP, tabs, probes, codes, bias)
                 got, want = kernel(), plain()
@@ -599,7 +640,7 @@ def phase_ivf_kernels(dev, IP, c=IVF_C, cap=IVF_CAP, d=IVF_D, p=IVF_P, bs=IVF_B,
                 err = _check_scores("ivf_adc", got, want, 1e-5 * mag)
                 errs["ivf_adc"] = max(errs["ivf_adc"], err)
                 print(f"phase5 ivf_adc M={m} K={k}{' packed' if packed else ''} {metric} "
-                      f"B={b}: max_abs_err {err}", flush=True)
+                      f"{label}: max_abs_err {err}", flush=True)
         del codes, bias
     return errs
 
@@ -736,12 +777,39 @@ def _bias_shift(idx):
     return shift
 
 
+def _adc_wavefronts(codes, kp, packed):
+    """Shared-memory wavefronts per warp-wide table lookup of K4 (1 = no
+    bank conflict), mean over the lookups of these [n, rows, cap] codes:
+    lane l of warp w looks up column 128 w + 4 l + j of its tile (j = 0..3,
+    one instruction each) in a bf16 table of kp entries a row; a bank holds
+    4-byte words, and a warp takes one wavefront per distinct word in its
+    busiest bank."""
+    n, rows, cap = codes.shape
+    c = codes[:, :, : cap // 128 * 128].long()
+    c = c.reshape(n, rows, -1, 32, 4).transpose(-1, -2)  # [..., j, lane]
+    r = torch.arange(rows, device=c.device).view(1, rows, 1, 1, 1)
+    if packed:  # byte row r: high nibble in table row 2r, low nibble in 2r + 1
+        words = torch.stack([((2 * r) * kp + (c >> 4)) // 2, ((2 * r + 1) * kp + (c & 15)) // 2])
+    else:
+        words = (r * kp + c) // 2
+    words = words.sort(dim=-1).values
+    new = torch.ones_like(words, dtype=torch.float32)
+    new[..., 1:] = (words[..., 1:] != words[..., :-1]).float()
+    per_bank = torch.zeros(*words.shape[:-1], 32, device=c.device)
+    per_bank.scatter_add_(-1, words % 32, new)
+    return per_bank.amax(dim=-1).mean().item()
+
+
 def _probe_args(idx, q, IP):
     """What search_arrays hands K3 or K4 for these queries, on the index's
-    own tensors: (kernel name, kernel thunk, plain thunk, tolerance thunk,
-    bound). The bound reads each probed bucket once (its rows or codes,
-    bias and scales), the queries or tables, and writes the [B, P, cap]
-    scores."""
+    own tensors: a dict of the kernel's name, its thunk, its plain
+    version's, a tolerance thunk and its bound; K3 adds `product`, the
+    score product of the distinct probed buckets' rows with the queries
+    (torch.mm, cuBLAS: a superset of the work, not the same
+    function); K4 adds `bound_f32`, the bound with f32 tables, and
+    `wavefronts`. The bound reads each probed bucket once (its rows or
+    codes, bias and scales), the queries or the bf16 tables, and writes
+    the [B, P, cap] scores."""
     from tostore_tpu_torch.ops.runtime import score_dtype
     from tostore_tpu_torch.vector.ivf import _pq_tables, _select_probes
 
@@ -750,7 +818,8 @@ def _probe_args(idx, q, IP):
                            idx.nprobe)
     zeros = torch.zeros_like(idx.bucket_bias)
     b, p = probe.shape
-    n_probed = int(torch.unique(probe).numel())
+    probed = torch.unique(probe)
+    n_probed = int(probed.numel())
     if idx.pq is None:
         qf = (qt * 2.0).to(score_dtype(idx.bucket_vectors.dtype)).contiguous()
         kernel, plain = _k3_pair(IP, qf, probe, idx.bucket_vectors, idx.bucket_bias,
@@ -760,46 +829,81 @@ def _probe_args(idx, q, IP):
                              None if idx.bucket_scales is None else idx.bucket_scales[0])
         bound = _bound(n_probed * per_bucket + _nbytes(qf) + b * p * cap * 4,
                        2 * b * p * cap * d)
-        return ("ivf_bucket_probe", kernel, plain,
-                lambda: TOL[torch.bfloat16] * IP._bucket_probe_scores_plain(
+        rows = idx.bucket_vectors[probed].reshape(-1, d)
+        return {"name": "ivf_bucket_probe", "kernel": kernel, "plain": plain,
+                "lim": lambda: TOL[torch.bfloat16] * IP._bucket_probe_scores_plain(
                     qf.abs(), probe, idx.bucket_vectors.abs(), zeros,
-                    idx.bucket_scales).clamp(min=1.0), bound)
+                    idx.bucket_scales).clamp(min=1.0),
+                "bound": bound,
+                "product": lambda: torch.mm(rows, qf.t(), out_dtype=torch.float32)}
     tabs, _ = _pq_tables(idx.pq.codebooks, qt[:, :DIMS], idx.centroids_exp[:, :DIMS], probe,
                          "l2", True)
     kernel, plain = _k4_pair(IP, tabs, probe, idx.bucket_codes, idx.bucket_bias)
-    cap, m = idx.bucket_codes.shape[2], tabs.shape[2]
-    bound = _bound(n_probed * _nbytes(idx.bucket_codes[0], idx.bucket_bias[0]) + _nbytes(tabs)
-                   + b * p * cap * 4, b * p * cap * m, "f32")
-    return ("ivf_adc", kernel, plain,
-            lambda: -1e-5 * IP._adc_bucket_scores_plain(
-                IP.round_tables(tabs).abs(), probe, idx.bucket_codes, zeros), bound)
+    cap, m, k = idx.bucket_codes.shape[2], tabs.shape[2], tabs.shape[3]
+    codes = _nbytes(idx.bucket_codes[0], idx.bucket_bias[0])
+    packed = idx.bucket_codes.shape[1] * 2 == m
+    return {"name": "ivf_adc", "kernel": kernel, "plain": plain,
+            "lim": lambda: -1e-5 * IP._adc_bucket_scores_plain(
+                IP.round_tables(tabs).abs(), probe, idx.bucket_codes, zeros),
+            # the tables carry bf16 values: 2 bytes an entry
+            "bound": _bound(n_probed * codes + tabs.numel() * 2 + b * p * cap * 4,
+                            b * p * cap * m, "f32"),
+            "bound_f32": _bound(n_probed * codes + tabs.numel() * 4 + b * p * cap * 4,
+                                b * p * cap * m, "f32"),
+            "wavefronts": lambda: _adc_wavefronts(idx.bucket_codes[probed], k + (-k) % 8,
+                                                  packed)}
+
+
+# K3's and K4's main kernels, by name (the grouping pre-pass is ivf_group_kernel)
+IVF_MAIN = ("ivf_probe_wgmma", "ivf_probe_f32", "ivf_adc_kernel")
 
 
 def phase_ivf_kernels_main(idxs, queries, errs, IP):
     """Phase 6b: K3 and K4 against their plain versions on the indexes'
     own inputs (contiguous copies, bias, probes of the main path's
-    queries), then median device ms of each, kernel vs plain, and its
-    bound."""
+    queries), then, at B = 8 and 64, each timed call after the L2 is
+    flushed (a search meets its buckets cold): the call's median ms (CUDA
+    events), the kernel alone and the grouping pre-pass alone
+    (torch.profiler), the plain version's ms, the bound
+    and share; K3's product_ms; K4's share under the earlier bound with f32 tables
+    and the bank wavefronts of its table lookups."""
     times, bounds = {}, {}
+    flush = _l2_flush(next(iter(idxs.values())).device)
     for name, idx in idxs.items():
         for b in (1, 8, 64):
-            kname, kernel, plain, lim, _ = _probe_args(idx, queries[b], IP)
-            got, want, lim = kernel(), plain(), lim()
+            a = _probe_args(idx, queries[b], IP)
+            got, want, lim = a["kernel"](), a["plain"](), a["lim"]()
             torch.cuda.synchronize()
-            err = _check_scores(kname, got, want, lim)
-            errs[kname] = max(errs[kname], err)
-            print(f"phase6 {kname} {name} main-path inputs B={b}: max_abs_err {err}",
+            err = _check_scores(a["name"], got, want, lim)
+            errs[a["name"]] = max(errs[a["name"]], err)
+            print(f"phase6 {a['name']} {name} main-path inputs B={b}: max_abs_err {err}",
                   flush=True)
         for b in IVF_TIMED_B:
-            kname, kernel, plain, _, bound = _probe_args(idx, queries[b], IP)
-            order = [("kernel", kernel), ("plain", plain), ("plain", plain), ("kernel", kernel)]
-            for which, fn in order:
-                times.setdefault((name, b, which), []).append(_median_ms(fn))
-            bounds[name, b] = bound
-            ms = min(times[name, b, "kernel"])
-            print(f"phase6 {kname} {name} B={b}: kernel {ms:.4f} ms"
-                  f"  plain {min(times[name, b, 'plain']):.4f} ms  bound {bound[0]:.4f} ms "
-                  f"({bound[1]}), share {bound[0] / ms:.4f}", flush=True)
+            a = _probe_args(idx, queries[b], IP)
+            fns = [("kernel", a["kernel"]), ("plain", a["plain"])]
+            if "product" in a:
+                fns.append(("product", a["product"]))
+            for which, fn in fns + fns[::-1]:  # each twice, in turns
+                times.setdefault((name, b, which), []).append(_median_ms(fn, flush=flush))
+            times[name, b, "kernel_alone"] = [_kernel_device_ms(a["kernel"], names=IVF_MAIN,
+                                                                flush=flush)]
+            times[name, b, "prepass"] = [_kernel_device_ms(a["kernel"], names=("ivf_group",),
+                                                           flush=flush)]
+            bound = bounds[name, b] = a["bound"]
+            ms, alone = min(times[name, b, "kernel"]), times[name, b, "kernel_alone"][0]
+            extra = ""
+            if "product" in a:
+                extra = f"  product_ms {min(times[name, b, 'product']):.4f}"
+            else:
+                extra = (f"  (earlier bound, f32 tables, {a['bound_f32'][0]:.4f} ms: share "
+                         f"{a['bound_f32'][0] / alone:.4f} of the kernel); table lookups "
+                         f"{a['wavefronts']():.4f} wavefronts each")
+            print(f"phase6 {a['name']} {name} B={b}: call {ms:.4f} ms, kernel alone "
+                  f"{alone:.4f} ms device (grouping pre-pass "
+                  f"{times[name, b, 'prepass'][0]:.4f} ms), plain "
+                  f"{min(times[name, b, 'plain']):.4f} ms; "
+                  f"bound {bound[0]:.4f} ms ({bound[1]}), share {bound[0] / alone:.4f} of the "
+                  f"kernel, {bound[0] / ms:.4f} of the call{extra}", flush=True)
     return {key: min(v) for key, v in times.items()}, bounds
 
 
@@ -961,6 +1065,8 @@ def phase_group_kernels(dev, flat, T):
         product = ("product", lambda: torch.mm(qb, c.t(), out_dtype=torch.float32))
         for name, fn in list(pair) + [product] + list(reversed(pair)):  # twice, in turns
             times.setdefault((b, name), []).append(_median_ms(fn))
+        for name, fn in pair[::2]:  # the kernel alone, device time
+            times[b, name + " alone"] = [_kernel_device_ms(fn, names=("lane_topk",))]
         _, ei = T.flat_topk_xla(qt, c, bias, alpha, K)
         ei = ei.cpu().tolist()
         for name, fn in pair[::2]:
@@ -972,6 +1078,8 @@ def phase_group_kernels(dev, flat, T):
         bounds[b] = _scan_bound(b, c, bias, None, c.shape[0] // (32 * BLK_N) * 256)
         print(f"phase7 B={b}: " + "  ".join(f"{name} {min(times[b, name]):.4f} ms"
                                              for name, _ in list(pair) + [product])
+              + "  |  kernel alone (device): " + "  ".join(
+                  f"{name} {times[b, name + ' alone'][0]:.4f} ms" for name, _ in pair[::2])
               + f"  |  bound {bounds[b][0]:.4f} ms ({bounds[b][1]})", flush=True)
     for name, n in agree.items():
         rate = n / total
@@ -1195,8 +1303,8 @@ def main() -> int:
     print(f"kernel build {time.perf_counter() - t0:.2f} s (nvcc {_kernels.build_seconds:.2f} s)",
           flush=True)
     spills = _print_ptxas(_kernels.build_log)
-    if any(spills[name] for name in spills if "lane_scan" in name):
-        raise AssertionError("a TMA / wgmma lane-scan kernel spills registers")
+    if any(spills[name] for name in spills if "lane_scan" in name or "ivf_" in name):
+        raise AssertionError("a TMA / wgmma lane-scan or IVF kernel spills registers")
 
     errs = phase_kernels(dev, T)
     idxs, deleted = build_indexes(dev)
@@ -1245,18 +1353,19 @@ def main() -> int:
               bounds[256], times[256, "product"], times[256, "kernel"]),
         entry("ivf_bucket_probe", ivf_src, "tostore_tpu/ops/ivfprobe.py:130",
               ivf_launches["ivf_bucket_probe"], ivf_times["raw", 8, "kernel"],
-              ivf_times["raw", 8, "plain"], ivf_bounds["raw", 8]),
+              ivf_times["raw", 8, "plain"], ivf_bounds["raw", 8], ivf_times["raw", 8, "product"],
+              ivf_times["raw", 8, "kernel_alone"]),
         entry("ivf_adc", ivf_src, "tostore_tpu/ops/ivfprobe.py:44", ivf_launches["ivf_adc"],
               ivf_times["pq192", 8, "kernel"], ivf_times["pq192", 8, "plain"],
-              ivf_bounds["pq192", 8]),
+              ivf_bounds["pq192", 8], kernel_ms=ivf_times["pq192", 8, "kernel_alone"]),
         entry("lane_topk_group", src, "tostore_tpu/ops/topk.py:361",
               hybrid_launches["lane_topk_group"], group_times[256, "lane_topk_group"],
               group_times[256, "lane_topk_group plain"], group_bounds[256],
-              group_times[256, "product"]),
+              group_times[256, "product"], group_times[256, "lane_topk_group alone"]),
         entry("lane_topk_group_pipe", src, "experiments/_exp_pipe.py:75",
               hybrid_launches["lane_topk_group_pipe"], group_times[256, "lane_topk_group_pipe"],
               group_times[256, "lane_topk_group_pipe plain"], group_bounds[256],
-              group_times[256, "product"]),
+              group_times[256, "product"], group_times[256, "lane_topk_group_pipe alone"]),
     ]}
     print("build s (train + buckets): " + json.dumps(build_s), flush=True)
     print(json.dumps(report), flush=True)

@@ -14,7 +14,9 @@ imports JAX, so run it there with
 Tolerances of K1/K2/K5/K6 are stated in tests/torch_parity.py (K5/K6's
 candidates within twice that, a near-tie picking the other row); K3 is held to
 1e-5 (f32) or 1e-4 (bf16, int8) of max(1, sum_i |q_i x_i| * scale), K4 to
-1e-5 of sum_m |tab| (tests/test_torch_ivfprobe.py says why).
+1e-5 of sum_m |tab| (tests/test_torch_ivfprobe.py says why). K3 and K4 take
+the (query, probe) pairs grouped by bucket; their probe-pattern cases cover
+long, shared and single runs and dead ids.
 """
 
 import numpy as np
@@ -332,11 +334,11 @@ def _adc_inputs(dev, m, k, packed, c, cap, b, p, seed):
 
 
 @pytest.mark.parametrize("m,k,packed,smem", [
-    (96, 256, False, None),       # 96 KB table: one chunk, dynamic shared memory > 48 KB
-    (128, 256, False, None),      # 128 KB: two chunks of the default budget
+    (96, 256, False, None),       # 48 KB bf16 table: three chunks of 32 subspaces
+    (128, 256, False, None),      # 64 KB: four chunks of the default budget
     (192, 16, True, None),
-    (192, 16, True, 16 * 64),     # 16 subspaces a chunk: 12 chunks of byte rows
-    (12, 64, False, 5 * 256),     # 5 subspaces a chunk, a short last chunk
+    (192, 16, True, 16 * 32),     # 16 subspaces a chunk: 12 chunks of byte rows
+    (12, 64, False, 5 * 128),     # 5 subspaces a chunk, a short last chunk
     (3, 256, False, None),        # (M, K) the JAX kernel does not take
 ])
 @pytest.mark.parametrize("cap,b,p", [(37, 1, 1), (1984, 4, 16), (1030, 2, 3)])
@@ -352,6 +354,102 @@ def test_k4_matches_plain(cuda, monkeypatch, m, k, packed, smem, cap, b, p):
     mag = -tivf._adc_bucket_scores_plain(rounded.abs(), probes, codes, torch.zeros_like(bias))
     torch.cuda.synchronize()
     _check_scores(got, want, 1e-5 * mag)
+
+
+def _pattern_probes(pattern, probes, c):
+    """K3/K4 probe patterns on [B, P] probes: every pair in one bucket (a
+    run longer than 64), every query probing the same P buckets, or random
+    with ids -1 and C."""
+    if pattern == "one_bucket":
+        probes[:] = 2
+    elif pattern == "shared":
+        probes[:] = torch.randperm(c, device=probes.device)[: probes.shape[1]].to(probes.dtype)
+    elif pattern == "out_of_range":
+        probes[0, 0], probes[-1, -1], probes[probes.shape[0] // 2, 0] = -1, c, c + 7
+    return probes
+
+
+def _check_live_dead(got, want, lim, probes, c):
+    """Pairs with an id in [0, C) against the plain version (run on the
+    clamped ids), the others dead."""
+    live = (probes >= 0) & (probes < c)
+    assert bool((got[~live] <= NEG_INF / 2).all())
+    _check_scores(got[live], want[live], lim[live])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("pattern", ["one_bucket", "shared", "out_of_range", "single"])
+@pytest.mark.parametrize("d", [128, 768, 2048])
+def test_k3_probe_patterns(cuda, dtype, pattern, d):
+    """Queries grouped by bucket: runs of 150 (chunks of 64, 64, 22), runs
+    of B, a single pair, dead runs; cap 300 is no multiple of the row tile."""
+    b, p = (1, 1) if pattern == "single" else (50, 3)
+    q, probes, v, bias, scale = _probe_inputs(cuda, dtype, 7, 300, d, b, p, d + len(pattern))
+    probes = _pattern_probes(pattern, probes, 7)
+    before = tivf.LAUNCHES["ivf_bucket_probe"]
+    got = tivf.bucket_probe_scores(q, probes, v, bias, scale)
+    assert tivf.LAUNCHES["ivf_bucket_probe"] == before + 1
+    pc = probes.clamp(0, 6)
+    want = tivf._bucket_probe_scores_plain(q, pc, v, bias, scale)
+    mag = tivf._bucket_probe_scores_plain(q.abs(), pc, v.abs(), torch.zeros_like(bias), scale)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 1e-4
+    _check_live_dead(got, want, tol * mag.clamp(min=1.0), probes, 7)
+
+
+@pytest.mark.parametrize("b,p", [(1, 1), (8, 16), (64, 16), (300, 16), (5, 3)])
+@pytest.mark.parametrize("wide", [False, True])
+def test_grouping_prepass_matches_plain(cuda, b, p, wide):
+    """K3/K4's pre-pass: the pairs sorted by clamped id, stable, per launch
+    slice of RUN_MAX (300 x 16 pairs take two), equal to the plain sort."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(b * p)
+    probes = torch.randint(-3, 12, (b, p), generator=g, device=cuda)
+    if wide:
+        probes[0, 0] = 2**40  # an int64 id must not wrap into [0, C)
+        probes = probes.t().contiguous().t()  # strided: read in place, not copied
+    else:
+        probes = probes.to(torch.int32)
+    got = tivf._group_pairs_cuda(probes, 9)
+    want = tivf._group_pairs_plain(probes, 9)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k3_more_pairs_than_one_launch(cuda, dtype):
+    """B * P = 4,800 sorted pairs: two launches, a run cut between them."""
+    q, probes, v, bias, scale = _probe_inputs(cuda, dtype, 3, 64, 128, 300, 16, 11)
+    before = tivf.LAUNCHES["ivf_bucket_probe"]
+    got = tivf.bucket_probe_scores(q, probes, v, bias, scale)
+    assert tivf.LAUNCHES["ivf_bucket_probe"] == before + 2
+    want = tivf._bucket_probe_scores_plain(q, probes, v, bias, scale)
+    mag = tivf._bucket_probe_scores_plain(q.abs(), probes, v.abs(), torch.zeros_like(bias), scale)
+    torch.cuda.synchronize()
+    _check_scores(got, want, (1e-5 if dtype == "float32" else 1e-4) * mag.clamp(min=1.0))
+
+
+@pytest.mark.parametrize("m,k,packed", [(96, 256, False), (192, 16, True), (4, 12, False)])
+@pytest.mark.parametrize("pattern", ["one_bucket", "shared", "out_of_range", "single",
+                                     "broadcast"])
+@pytest.mark.parametrize("cap", [1040, 300])
+def test_k4_probe_patterns(cuda, m, k, packed, pattern, cap):
+    """Runs of 150, runs of B, a single pair, dead runs, and one table per
+    query broadcast over P (stride 0, as a non-residual index passes it);
+    K = 12 pads the table rows; cap 1040 takes the TMA code tile, 300 (no
+    multiple of 16) the threads' loads, neither a multiple of 512."""
+    b, p = (1, 1) if pattern == "single" else (50, 3)
+    tabs, probes, codes, bias = _adc_inputs(cuda, m, k, packed, 7, cap, b, p, m + k + cap)
+    probes = _pattern_probes(pattern, probes, 7)
+    if pattern == "broadcast":
+        tabs = tabs[:, :1].expand(b, p, m, k)
+    before = tivf.LAUNCHES["ivf_adc"]
+    got = tivf.adc_bucket_scores(tabs, probes, codes, bias)
+    assert tivf.LAUNCHES["ivf_adc"] == before + 1
+    rounded, pc = tivf.round_tables(tabs), probes.clamp(0, 6)
+    want = tivf._adc_bucket_scores_plain(rounded, pc, codes, bias)
+    mag = -tivf._adc_bucket_scores_plain(rounded.abs(), pc, codes, torch.zeros_like(bias))
+    torch.cuda.synchronize()
+    _check_live_dead(got, want, 1e-5 * mag, probes, 7)
 
 
 def test_probe_ids_out_of_range_score_dead(cuda):

@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the entry points in csrc/: pointers and the stream are
 # c_void_p
 _SIGNATURES = {
@@ -47,8 +48,11 @@ _SIGNATURES = {
     "lane_topk_group": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
     "lane_topk_group_pipe": [_P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
     # ivf_probe.cu (K3, K4)
-    "ivf_bucket_probe": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "ivf_adc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "ivf_bucket_probe": [_P, _P, _I, _L, _L, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                         _P],
+    "ivf_adc": [_P, _L, _L, _P, _I, _L, _L, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                _P, _P],
+    "ivf_group_pairs": [_P, _I, _L, _L, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -15,7 +15,11 @@
 On a CUDA tensor each wrapper launches its kernel (built by
 ops/_kernels.py) or raises; on a CPU tensor it runs the plain PyTorch
 version (`_bucket_probe_scores_plain`, `_adc_bucket_scores_plain`). The
-top-k over [B, P * cap] runs outside, in vector/ivf.py.
+kernels take the B * P (query, probe) pairs grouped by bucket (a
+pre-pass in the same call sorts them on the device, no host sync;
+`bucket_groups` is its plain version), so a bucket that several queries
+probe is read once. The top-k over [B, P * cap] runs outside, in
+vector/ivf.py.
 """
 
 from __future__ import annotations
@@ -30,9 +34,15 @@ from .runtime import score_dtype
 # kernel takes every (M, K), but both packages must pick the same path.
 ADC_GROUP_LANES = 1024
 
-# Shared memory K4 gives one chunk of the (query, probe) table: M * K f32
-# entries larger than this run in several chunks of subspaces.
-ADC_SMEM_BYTES = 96 * 1024
+# Shared memory of one chunk of K4's table ring: a (query, probe) table of
+# more M * K bf16 entries streams in several chunks of subspaces.
+ADC_SMEM_BYTES = 16 * 1024
+
+# Pairs per kernel launch: the grouping pre-pass sorts them in one CTA's
+# shared memory and every CTA of the kernel keeps their run starts there
+# (RUN_MAX in csrc/ivf_probe.cu); more pairs take several launches, each
+# sorting its own slice, so a bucket may be read once by each.
+RUN_MAX = 4096
 
 LAUNCHES = {"ivf_bucket_probe": 0, "ivf_adc": 0}
 
@@ -45,6 +55,49 @@ def adc_kernel_supported(m: int, k: int) -> bool:
     back to the gather path there, and so here (vector/ivf.py), so that
     both packages take the same path. K4 itself has no such limit."""
     return (m * k) % 128 == 0 and ADC_GROUP_LANES % k == 0
+
+
+def bucket_groups(probes: torch.Tensor):
+    """[B, P] probe ids -> (ids, order), both [B * P]: the ids in
+    ascending order and each one's pair index b * P + p, from one stable
+    sort. A run of equal ids is one bucket and the queries that probe it,
+    in pair order; ids below 0 come first and ids >= C last."""
+    return torch.sort(probes.reshape(-1), stable=True)
+
+
+def _slices(n: int):
+    """[start, stop) of the pairs each launch takes."""
+    return [(s0, min(n, s0 + RUN_MAX)) for s0 in range(0, n, RUN_MAX)]
+
+
+def _group_pairs_plain(probes, c: int):
+    """Plain version of the kernels' grouping pre-pass (`ivf_group_kernel`
+    in csrc/ivf_probe.cu): per launch's slice of RUN_MAX pairs,
+    `bucket_groups` of the ids clamped to [-1, C] (so that no int64 id
+    wraps into [0, C)), as int32 (ids, order)."""
+    flat = probes.reshape(-1).clamp(-1, c)
+    ids, order = [], []
+    for s0, s1 in _slices(flat.numel()):
+        i, o = bucket_groups(flat[s0:s1])
+        ids.append(i)
+        order.append(o + s0)
+    return torch.cat(ids).to(torch.int32), torch.cat(order).to(torch.int32)
+
+
+def _group_pairs_cuda(probes, c: int):
+    """The grouping pre-pass alone on the card (`ivf_group_pairs`), to
+    hold it against `_group_pairs_plain`; K3 and K4 run it inside their
+    own call."""
+    n = probes.numel()
+    ids = torch.empty(n, dtype=torch.int32, device=probes.device)
+    order = torch.empty_like(ids)
+    with torch.cuda.device(probes.device):
+        err = _kernels.library().ivf_group_pairs(
+            probes.data_ptr(), int(probes.dtype == torch.int64), *probes.stride(),
+            *probes.shape, c, ids.data_ptr(), order.data_ptr(),
+            torch.cuda.current_stream(probes.device).cuda_stream)
+    _kernels.check("ivf_group_pairs", err)
+    return ids, order
 
 
 def _check_common(probes, store, bias, c: int, cap: int):
@@ -92,7 +145,6 @@ def _bucket_probe_cuda(q, probes, bucket_vectors, bucket_bias, bucket_scale):
     if bucket_scale is not None and (bucket_scale.dtype != torch.float32
                                      or tuple(bucket_scale.shape) != (c, cap)):
         raise ValueError(f"bucket_scale must be float32 [{c}, {cap}]")
-    probes = probes.to(torch.int32).contiguous()
     for t in (q, bucket_vectors, bucket_bias, bucket_scale):
         if t is not None and (t.device != bucket_vectors.device or not t.is_contiguous()
                               or t.data_ptr() % 16):
@@ -100,17 +152,21 @@ def _bucket_probe_cuda(q, probes, bucket_vectors, bucket_bias, bucket_scale):
     out = torch.empty((b, p, cap), dtype=torch.float32, device=q.device)
     if b * p == 0 or cap == 0:
         return out
-    lib = _kernels.library()
+    n = b * p
+    ids = torch.empty(n, dtype=torch.int32, device=q.device)
+    order = torch.empty_like(ids)
+    qs = torch.empty((n, d), dtype=q.dtype, device=q.device)  # each sorted pair's query
     with torch.cuda.device(q.device):
-        err = lib.ivf_bucket_probe(
-            q.data_ptr(), probes.data_ptr(), bucket_vectors.data_ptr(),
-            _VEC_CODE[bucket_vectors.dtype], bucket_bias.data_ptr(),
-            bucket_scale.data_ptr() if bucket_scale is not None else None,
-            b, p, c, cap, d, out.data_ptr(),
+        err = _kernels.library().ivf_bucket_probe(
+            q.data_ptr(), probes.data_ptr(), int(probes.dtype == torch.int64), *probes.stride(),
+            b, p,
+            bucket_vectors.data_ptr(), _VEC_CODE[bucket_vectors.dtype], bucket_bias.data_ptr(),
+            bucket_scale.data_ptr() if bucket_scale is not None else None, c, cap, d,
+            ids.data_ptr(), order.data_ptr(), qs.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _kernels.check("ivf_bucket_probe", err)
-    LAUNCHES["ivf_bucket_probe"] += 1
+    LAUNCHES["ivf_bucket_probe"] += len(_slices(n))
     return out
 
 
@@ -139,7 +195,7 @@ def _unpack_nibbles(codes: torch.Tensor) -> torch.Tensor:
 
 def round_tables(tabs: torch.Tensor) -> torch.Tensor:
     """ADC tables rounded to bf16 values, held in f32 (contiguous), as
-    `adc_bucket_scores` gives them to K4 or its plain version."""
+    `adc_bucket_scores` gives them to K4's plain version."""
     return tabs.to(torch.bfloat16).float().contiguous()
 
 
@@ -161,6 +217,21 @@ def _adc_bucket_scores_plain(tabs, probes, bucket_codes, bucket_bias):
     return out
 
 
+def _bf16_tables(tabs: torch.Tensor) -> torch.Tensor:
+    """K4's tables: `round_tables`' values in bf16 (half the bytes),
+    contiguous [B, P', M, Kp]. A table broadcast over P (stride 0, as a
+    non-residual index passes it) keeps P' = 1 instead of being copied P
+    times; Kp is K padded with zeros to a multiple of 8 (16-byte rows for
+    the kernel's bulk copies)."""
+    if tabs.shape[1] > 1 and tabs.stride(1) == 0:
+        tabs = tabs[:, :1]
+    t = tabs.to(torch.bfloat16)
+    k = t.shape[3]
+    if k % 8:
+        t = torch.nn.functional.pad(t, (0, 8 - k % 8))
+    return t.contiguous()
+
+
 def _adc_cuda(tabs, probes, bucket_codes, bucket_bias, packed: bool):
     b, p, m, k = tabs.shape
     c, rows, cap = bucket_codes.shape
@@ -169,25 +240,34 @@ def _adc_cuda(tabs, probes, bucket_codes, bucket_bias, packed: bool):
     if packed and k != 16:
         raise ValueError("nibble-packed codes need K = 16")
     _check_common(probes, bucket_codes, bucket_bias, c, cap)
-    probes = probes.to(torch.int32).contiguous()
-    for t in (tabs, bucket_codes, bucket_bias):
-        if t.device != bucket_codes.device or not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous, on one device")
-    # subspaces per shared-memory chunk; whole byte rows when packed
-    m_chunk = max(2 if packed else 1, ADC_SMEM_BYTES // (4 * k))
-    m_chunk = min(m, m_chunk - (m_chunk % 2 if packed else 0))
+    if tabs.device != bucket_codes.device:
+        raise ValueError("kernel inputs must be on one device")
+    for t in (bucket_codes, bucket_bias):
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
     out = torch.empty((b, p, cap), dtype=torch.float32, device=tabs.device)
     if b * p == 0 or cap == 0:
         return out
-    lib = _kernels.library()
+    tb = _bf16_tables(tabs)
+    if tb.data_ptr() % 16:
+        raise ValueError("the bf16 tables must be 16-byte aligned")
+    kp = tb.shape[3]
+    # subspaces per table chunk; whole byte rows when packed
+    m_chunk = max(2 if packed else 1, ADC_SMEM_BYTES // (2 * kp))
+    m_chunk = min(m, m_chunk - (m_chunk % 2 if packed else 0))
+    tab_p = tb.stride(1) if tb.shape[1] > 1 else 0
+    n = b * p
+    ids = torch.empty(n, dtype=torch.int32, device=tabs.device)
+    order = torch.empty_like(ids)
     with torch.cuda.device(tabs.device):
-        err = lib.ivf_adc(
-            tabs.data_ptr(), probes.data_ptr(), bucket_codes.data_ptr(),
-            bucket_bias.data_ptr(), b, p, c, m, k, cap, int(packed), m_chunk,
-            out.data_ptr(), torch.cuda.current_stream(tabs.device).cuda_stream,
+        err = _kernels.library().ivf_adc(
+            tb.data_ptr(), tb.stride(0), tab_p, probes.data_ptr(),
+            int(probes.dtype == torch.int64), *probes.stride(), b, p, bucket_codes.data_ptr(),
+            bucket_bias.data_ptr(), c, m, k, kp, cap, int(packed), m_chunk, ids.data_ptr(),
+            order.data_ptr(), out.data_ptr(), torch.cuda.current_stream(tabs.device).cuda_stream,
         )
     _kernels.check("ivf_adc", err)
-    LAUNCHES["ivf_adc"] += 1
+    LAUNCHES["ivf_adc"] += len(_slices(n))
     return out
 
 
@@ -200,13 +280,13 @@ def adc_bucket_scores(tabs, probes, bucket_codes, bucket_bias):
 
     The tables are rounded to bf16 first, as the Pallas kernel rounds them
     for its one-hot product, so that K4, its plain version and the JAX
-    package sum the same values and rank the same re-rank pool; the sums
-    are f32."""
+    package sum the same values and rank the same re-rank pool (K4 reads
+    them as bf16, `_bf16_tables`; its plain version as f32,
+    `round_tables`); the sums are f32."""
     m = tabs.shape[2]
     rows = bucket_codes.shape[1]
     if rows * 2 != m and rows != m:
         raise ValueError(f"bucket_codes rows {rows} fit neither M={m} nor M/2")
-    tabs = round_tables(tabs)
     if not bucket_codes.is_cuda:
-        return _adc_bucket_scores_plain(tabs, probes, bucket_codes, bucket_bias)
+        return _adc_bucket_scores_plain(round_tables(tabs), probes, bucket_codes, bucket_bias)
     return _adc_cuda(tabs, probes, bucket_codes, bucket_bias, packed=rows * 2 == m)
