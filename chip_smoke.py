@@ -18,16 +18,19 @@ imports nothing of JAX or tostore_tpu. Phases:
      or 1e-4 (bf16, int8) of max(1, |score|), indices equal as sets
      outside near-ties at the k-th score.
   2. The main path at size: FlatVectorIndex(768, l2 / dot, "bfloat16") on
-     the card, 1,000,000 seeded vectors upserted in chunks, 1% deleted;
-     search_arrays at k = 10 for B = 1, 8, 32 (auto -> K1), B = 256 (auto ->
-     lane scan) and B = 256 mode="fused" (K2), plus single-query search().
-     The kernels' launch counters are zeroed just before and read just
-     after; each must be > 0. Top-10 agreement with mode="exact" >= 0.999,
-     the distances of the pks both return within the bf16 tolerance of the
-     exact ones, and no deleted pk may come back.
+     the card, 1,000,000 seeded vectors upserted in chunks, 1% deleted, and
+     an int8 and an f32 l2 index of the first 250,000 rows (the other
+     corpus types; f32 takes the f32 FMA kernels); search_arrays at k = 10
+     for B = 1, 8, 32 (auto -> K1), B = 256 auto (on the card -> K2) and
+     B = 256 mode="fused" (K2), plus single-query search(). The kernels'
+     launch counters are zeroed just before and read just after; each must
+     equal what the dispatch rule says (auto at B = 256 among K2's). Top-10
+     agreement with mode="exact" >= 0.999, the distances of the pks both
+     return within the bf16 tolerance of the exact ones, and no deleted pk
+     may come back.
   3. K1 and K2 against their plain versions on the main path's own inputs
-     (both indexes' corpus, bias and scales at capacity 1,048,576, where a
-     CTA folds several blocks), with the bf16 tolerance; then median ms per
+     (every index's corpus, bias and scales, at capacity 1,048,576 a CTA
+     folds several blocks), with the dtype's tolerance; then median ms per
      scan of the l2 index (CUDA events around the wrapper's call, its final
      top-k included), kernel beside plain version, for each B, with the
      kernel's own device time (torch.profiler), the bound (bytes over 3.35
@@ -35,7 +38,10 @@ imports nothing of JAX or tostore_tpu. Phases:
      it, and `product_ms`: torch.mm of the same [B, 768] x [768, N] score
      product alone (cuBLAS; not the same function, no single PyTorch call
      computes the lane top-k); at B = 256 also the plain lane scan and
-     mode="exact".
+     mode="exact"; the f32 FMA K1 / K2 the same on the f32 index (B = 8,
+     256). Then the flat auto route's crossover: for bf16 (1M rows), int8
+     and f32 (250,000 rows) at B = 40, 64, 128, 256, 512, the K2 path beside the
+     plain lane scan, ms per call in turns, and the route `auto` takes.
   4. With --profile: the corpus's read floors on this card (a device copy
      and an int16 max over it) and, from torch.profiler, each kernel's
      device time beside the device time of its whole call and the three
@@ -59,25 +65,35 @@ imports nothing of JAX or tostore_tpu. Phases:
      against mode="exact" >= 0.95 raw / 0.85 PQ, no deleted pk back, and
      shared pks' scores within the bf16 tolerance. Then K3 and K4 against
      their plain versions on the indexes' own buckets, codes, bias and
-     probes; at B = 8 and 64, the L2 flushed before each timed call, the
+     probes, and the grouping pre-pass against its plain version on the
+     same probes, exactly; at B = 8 and 64, the L2 flushed before each timed call, the
      median ms of each call (CUDA events) and of its plain version, the
      kernel alone and its grouping pre-pass (torch.profiler), bound and
      share (K4's tables at 2 bytes an entry, with the share under the
      earlier f32-table bound beside it, and the shared-memory wavefronts
      of its table lookups), and K3's product_ms (torch.mm of the distinct probed
-     buckets' rows with the queries); then search_arrays probe against
-     the flat scan at B = 8 to 256 (host clock); with --profile, the
-     device-time breakdown of a probe call.
+     buckets' rows with the queries) and the grouping pre-pass alone
+     beside its plain version; then search_arrays probe against the flat
+     scan at B = 1 to 256 (host clock) with the route `auto` takes at each
+     B and whether it was the faster one here (marked, not asserted, and
+     marked apart where the two are within the host clock's spread); with
+     --profile, the device-time breakdown of a probe call.
   7. K5 (lane_topk_group) and K6 (lane_topk_group_pipe) against their
-     plain versions: first on random CUDA tensors at N = 131072 (f32, bf16
-     and int8, int8 with row scales for K5 only; l2 and dot; B = 40, 128,
-     256; K5 at gsz = 5, so its last group is partial; K6 at its default
-     gsz), then on phase 2's l2 index (capacity 1,048,576, default gsz 32:
-     16 groups). Candidates within twice the phase-1 tolerance, a row that
+     plain versions: first on random CUDA tensors at N = 131072 (f32: the
+     f32 FMA kernels; bf16 and int8: the TMA / wgmma kernels of
+     csrc/lane_scan_group.cu; int8 with row scales for K5 only; l2 and dot;
+     B = 40, 128, 256; K5 at gsz = 5, so its last group is partial; K6 at
+     its default gsz; and B = 72, no multiple of a query tile, on a bias
+     with whole lane halves, a whole group and single lanes dead, where
+     K6's candidates must equal K5's bit for bit), then on the f32 index
+     and on phase 2's l2 index (capacity 1,048,576, default gsz 32: 16
+     groups). Candidates within twice the phase-1 tolerance, a row that
      differs on a near-tie checked for its bucket and its score, and the
      top-k as in phase 1. Then median ms of each kernel's call beside its
-     plain version at B = 128 and 256, each kernel alone (torch.profiler),
-     and top-10 agreement with the exact scan (>= 0.999).
+     plain version at B = 128 and 256, each kernel alone (torch.profiler)
+     with its share of the bound, the kernel alone at each query tile
+     width forced (what the grid plan chooses between), and top-10
+     agreement with the exact scan (>= 0.999).
   8. Hybrid filtered search on the main path: a float column `price`
      (uniform [0, 1)) and an int column `ts` (epoch ms 1.7e12 + pk, every
      97th None) written through `filter_columns.update` into phase 2's l2
@@ -87,8 +103,10 @@ imports nothing of JAX or tostore_tpu. Phases:
      (compilable, ensure, device_mask), their selectivity and device_mask
      ms. With every launch counter zeroed: flat search_arrays B = 1, 8, 32
      auto (K1), 256 auto, 256 fused (K2); K5 and K6 at B = 128 and 256 on
-     the filtered bias; IVF probe B = 8 and 64 (K3 raw, K4 PQ). All six
-     kernels must launch. Every hit must satisfy its predicate (evaluated
+     the filtered bias; the same four kernels' f32 forms on the f32 index
+     (for the conditions that select rows of it); IVF probe B = 8 and 64
+     (K3 raw, K4 PQ). All six kernels and the four f32 forms must launch.
+     Every hit must satisfy its predicate (evaluated
      on the host from the numpy columns) and no deleted pk may come back;
      flat and K5/K6 top-10 agreement with the exact scan under the same
      mask >= 0.999; IVF recall@10 against exact-with-mask is printed (the
@@ -99,7 +117,8 @@ build time, a JSON line of the kernels (each with its launches on its
 path, max_abs_err, ms, plain_ms, bound_ms / bound_by computed from this
 run's shapes, library_ms, null where no single PyTorch call computes the
 function, kernel_ms where the kernel alone was timed, and product_ms for
-the lane scans and K3), and last `{"ok": true, ...}`. Any failure raises
+the lane scans and K3; the six kernels, then their f32 forms and the IVF
+grouping pre-pass), and last `{"ok": true, ...}`. Any failure raises
 and exits non-zero.
 """
 
@@ -240,73 +259,112 @@ def phase_kernels(dev, T):
     return errs
 
 
+SIDE_ROWS = 250_000  # the int8 and f32 l2 indexes: the first rows of the bf16 ones
+
+
 def build_indexes(dev):
+    """The two 1M bf16 indexes of the main path and, from their first
+    SIDE_ROWS rows, an int8 and an f32 l2 index: the other corpus types of
+    the flat path (f32 corpora take the f32 FMA kernels)."""
     from tostore_tpu_torch import FlatVectorIndex
 
     rng = np.random.default_rng(SEED + 1)
     idxs = {m: FlatVectorIndex(DIMS, m, "bfloat16", device=dev) for m in ("l2", "dot")}
+    side = {p: FlatVectorIndex(DIMS, "l2", p, device=dev) for p in ("int8", "float32")}
     t0 = time.perf_counter()
     chunk = 125_000
     for off in range(0, N_ROWS, chunk):
         x = rng.standard_normal((chunk, DIMS), dtype=np.float32)
         pks = list(range(off, off + chunk))
-        for idx in idxs.values():
+        for idx in list(idxs.values()) + (list(side.values()) if off < SIDE_ROWS else []):
             idx.upsert(pks, x)
     deleted = set(rng.choice(N_ROWS, N_ROWS // 100, replace=False).tolist())
     for idx in idxs.values():
         idx.delete(sorted(deleted))
+    for idx in side.values():
+        idx.delete(sorted(p for p in deleted if p < SIDE_ROWS))
     torch.cuda.synchronize()
     print(f"built 2 indexes of {N_ROWS} x {DIMS} bf16 (capacity "
-          f"{idxs['l2'].corpus.capacity}) in {time.perf_counter() - t0:.1f} s", flush=True)
-    return idxs, deleted
+          f"{idxs['l2'].corpus.capacity}) and an int8 and an f32 one of {SIDE_ROWS} rows "
+          f"(capacity {side['int8'].corpus.capacity}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return idxs, side, deleted
 
 
 MAIN_CALLS = [(1, "auto"), (8, "auto"), (32, "auto"), (256, "auto"), (256, "fused")]
+SIDE_CALLS = [(8, "auto"), (256, "auto"), (256, "fused")]
 TIMED_B = (1, 8, 32, 256)
+# the batches of the flat auto route's crossover (f32's routes cross past 256)
+ROUTE_B = (40, 64, 128, 256, 512)
 
 
-def phase_main_path(idxs, deleted, T):
+def _flat_launches(T, calls):
+    """The launches that (corpus dtype, B, mode) flat searches must make,
+    by kernel: K1 up to 32 padded queries, K2 above for mode 'fused' and
+    where `auto` takes the fused path on the card."""
+    want = {}
+    for dtype, b, mode in calls:
+        b_pad = -(-b // 8) * 8
+        if b_pad <= T.ACC_MAX_BLK_B:
+            name = "lane_topk_acc"
+        elif mode == "fused" or T._auto_route(b_pad, dtype, "cuda") == "fused":
+            name = "lane_topk_emit"
+        else:
+            continue
+        name += "_f32" if dtype == torch.float32 else ""
+        want[name] = want.get(name, 0) + 1
+    return want
+
+
+def phase_main_path(idxs, side, deleted, T):
     """Phase 2: the main path through the public index API."""
     rng = np.random.default_rng(SEED + 2)
-    queries = {b: rng.standard_normal((b, DIMS), dtype=np.float32) for b, _ in MAIN_CALLS}
+    queries = {b: rng.standard_normal((b, DIMS), dtype=np.float32)
+               for b in sorted({b for b, _ in MAIN_CALLS} | set(ROUTE_B))}
     single = rng.standard_normal(DIMS, dtype=np.float32)
+    calls = {**{name: MAIN_CALLS for name in idxs}, **{name: SIDE_CALLS for name in side}}
+    idxs = {**idxs, **side}
     for key in T.LAUNCHES:
         T.LAUNCHES[key] = 0
     results = {}
-    for metric, idx in idxs.items():
-        for b, mode in MAIN_CALLS:
-            results[metric, b, mode] = idx.search_arrays(queries[b], K, mode=mode)
-        results[metric, "single"] = idx.search(single, top_k=K)
+    for name, idx in idxs.items():
+        for b, mode in calls[name]:
+            results[name, b, mode] = idx.search_arrays(queries[b], K, mode=mode)
+        results[name, "single"] = idx.search(single, top_k=K)
     torch.cuda.synchronize()
     launches = dict(T.LAUNCHES)
     print(f"phase2 launches on the main path: {launches}", flush=True)
-    for key in ("lane_topk_acc", "lane_topk_emit"):  # K5/K6 run in phases 7-8
-        if launches[key] <= 0:
-            raise AssertionError(f"kernel {key} was not launched on the main path")
+    want = _flat_launches(T, [(idx.corpus.vectors.dtype, b, mode) for name, idx in idxs.items()
+                              for b, mode in calls[name] + [(1, "auto")]])
+    for key in ("lane_topk_acc", "lane_topk_emit", "lane_topk_acc_f32", "lane_topk_emit_f32"):
+        # K5/K6 run in phases 7-8; auto at B = 256 is among K2's launches
+        if launches[key] <= 0 or launches[key] != want[key]:
+            raise AssertionError(f"kernel {key}: {launches[key]} launches on the main path, "
+                                 f"expected {want[key]}")
 
     agree = total = 0
     dist_err = 0.0
-    for metric, idx in idxs.items():
-        for b, mode in MAIN_CALLS:
-            dist, slots, pks = results[metric, b, mode]
+    for name, idx in idxs.items():
+        for b, mode in calls[name]:
+            dist, slots, pks = results[name, b, mode]
             if dist.shape != (b, K) or not np.isfinite(dist).all() or (slots < 0).any():
-                raise AssertionError(f"{metric} B={b} {mode}: bad result shape or values")
+                raise AssertionError(f"{name} B={b} {mode}: bad result shape or values")
             if any(p in deleted for p in pks.ravel()):
-                raise AssertionError(f"{metric} B={b} {mode}: a deleted pk came back")
+                raise AssertionError(f"{name} B={b} {mode}: a deleted pk came back")
             edist, _, epks = idx.search_arrays(queries[b], K, mode="exact")
             for row in range(b):
                 agree += len(set(pks[row].tolist()) & set(epks[row].tolist()))
                 total += K
-                err = _check_shared_dists(metric, queries[b][row], pks[row], dist[row],
+                err = _check_shared_dists(idx.metric, queries[b][row], pks[row], dist[row],
                                           epks[row], edist[row])
                 dist_err = max(dist_err, err)
-        hits = results[metric, "single"]
+        hits = results[name, "single"]
         edist, _, epks = idx.search_arrays(single, K, mode="exact")
         if len(hits) != K or any(h.primary_key in deleted for h in hits):
-            raise AssertionError(f"{metric}: single-query search returned {len(hits)} hits")
+            raise AssertionError(f"{name}: single-query search returned {len(hits)} hits")
         agree += len({h.primary_key for h in hits} & set(epks[0].tolist()))
         total += K
-        err = _check_shared_dists(metric, single, np.array([h.primary_key for h in hits]),
+        err = _check_shared_dists(idx.metric, single, np.array([h.primary_key for h in hits]),
                                   np.array([h.distance for h in hits]), epks[0], edist[0])
         dist_err = max(dist_err, err)
     rate = agree / total
@@ -392,11 +450,15 @@ def _kernel_device_ms(fn, calls=5, names=("lane_scan", "lane_topk"), flush=None)
 def _pairs(idx, qt, b, T):
     """(name, fn) of the fused kernel at B and its plain version, on the
     index's own corpus, bias and scales, then the score product alone
-    (torch.mm, cuBLAS); the lane scan and the exact scan join at B > 32."""
+    (torch.mm, cuBLAS); the lane scan and the exact scan join at B > 32.
+    On an f32 corpus the kernels are the f32 FMA ones."""
     c = idx.corpus.vectors
     bias, alpha, scale = idx._bias_alpha(None)
     qb = qt.to(c.dtype)
-    product = ("product", lambda: torch.mm(qb, c.t(), out_dtype=torch.float32))
+    if c.dtype == torch.float32:
+        product = ("product", lambda: torch.mm(qb, c.t()))
+    else:
+        product = ("product", lambda: torch.mm(qb, c.t(), out_dtype=torch.float32))
     if b <= 32:
         return (("lane_topk_acc", lambda: T.fused_flat_topk(
                     qt, c, bias, k=K, alpha=alpha, row_scale=scale)),
@@ -423,23 +485,71 @@ def _pair_bound(idx, b, T):
     return _scan_bound(b, c, bias, scale, c.shape[0] // 4096 * 256)
 
 
-def phase_main_kernels(idxs, queries, T, errs):
+def phase_auto_route(idxs, queries, T):
+    """Phase 3b: what `flat_search(mode="auto")` may take for B > 32 on
+    the card, timed on each corpus type's l2 index: the fused path (K2)
+    beside the plain lane scan, median ms per call in turns, and the route
+    `_auto_route` takes. Returns {(dtype name, B): (K2 ms, lane ms)}."""
+    out = {}
+    for idx in idxs:
+        c = idx.corpus.vectors
+        bias, alpha, scale = idx._bias_alpha(None)
+        name = str(c.dtype)[6:]
+        for b in ROUTE_B:
+            qt, _, _ = idx._prep_queries(queries[b])
+            fns = (("fused", lambda: T.fused_flat_topk(qt, c, bias, k=K, alpha=alpha,
+                                                       row_scale=scale)),
+                   ("lane", lambda: T.flat_topk_lane(qt, c, bias, k=K, alpha=alpha,
+                                                     row_scale=scale)))
+            ms = {}
+            for which, fn in fns + fns[::-1]:
+                ms[which] = min(ms.get(which, np.inf), _median_ms(fn, reps=7))
+            route = T._auto_route(-(-b // 8) * 8, c.dtype, "cuda")
+            faster = min(ms, key=ms.get)
+            out[name, b] = (ms["fused"], ms["lane"])
+            print(f"phase3 auto route {name} N={c.shape[0]} B={b}: K2 path {ms['fused']:.4f} ms, "
+                  f"lane scan {ms['lane']:.4f} ms; auto takes {route}, the faster is {faster}"
+                  f"{'' if route == faster else ' (NOT the one taken)'}", flush=True)
+    return out
+
+
+def phase_main_kernels(idxs, side, queries, T, errs):
     """Phase 3: each kernel against its plain version on the main path's
-    inputs, then device time per scan of the l2 index, kernel vs plain."""
-    for metric, idx in idxs.items():
+    inputs, then device time per scan of the l2 index, kernel vs plain;
+    the f32 FMA kernels the same on the f32 index at B = 8 and 256 (times
+    keyed ("float32", B, name))."""
+    for metric, idx in {**idxs, **side}.items():
+        dtype = idx.corpus.vectors.dtype
         for b in TIMED_B:
             qt, _, _ = idx._prep_queries(queries[b])
             (_, kernel), (_, plain) = _pairs(idx, qt, b, T)[:2]
-            name = "lane_topk_acc" if b <= 32 else "lane_topk_emit"
+            name = ("lane_topk_acc" if b <= 32 else "lane_topk_emit") + (
+                "_f32" if dtype == torch.float32 else "")
             ks, ki = kernel()
             ps, pi = plain()
             torch.cuda.synchronize()
-            err = _check_topk(ks, ki, ps, pi, TOL[torch.bfloat16])
+            err = _check_topk(ks, ki, ps, pi, TOL[dtype])
             errs[name] = max(errs[name], err)
             print(f"phase3 {name} {metric} main-path inputs B={b}: max_abs_err {err}",
                   flush=True)
-    idx = idxs["l2"]
     times, bounds = {}, {}
+    idx = side["float32"]
+    for b in (8, 256):
+        qt, _, _ = idx._prep_queries(queries[b])
+        pair = _pairs(idx, qt, b, T)
+        for name, fn in list(pair) + list(reversed(pair)):
+            times.setdefault(("float32", b, name), []).append(_median_ms(fn, reps=7))
+        c = idx.corpus.vectors
+        bias, _, _ = idx._bias_alpha(None)
+        cols = T.MAX_T_CANDS * 128 if b <= 32 else c.shape[0] // 4096 * 256
+        # f32 queries (4 bytes an element) and f32 FMA operations
+        bounds["float32", b] = _bound(_nbytes(c, bias) + b * c.shape[1] * 4 + b * cols * 8,
+                                      2 * b * c.shape[0] * c.shape[1], "f32")
+        print(f"phase3 f32 N={c.shape[0]} B={b}: " + "  ".join(
+            f"{name} {min(times['float32', b, name]):.4f} ms" for name, _ in pair)
+            + f"  |  bound {bounds['float32', b][0]:.4f} ms ({bounds['float32', b][1]})",
+            flush=True)
+    idx = idxs["l2"]
     for b in TIMED_B:
         qt, _, _ = idx._prep_queries(queries[b])
         pair = _pairs(idx, qt, b, T)
@@ -509,10 +619,15 @@ SHARED = (64, 32)  # shared-bucket inputs: B = 64 queries probing 16 of the same
 
 def _check_grouping(IP, probes, c):
     """K3/K4's grouping pre-pass against its plain version (a stable sort
-    by id): the same ids and pair order, exactly."""
+    by id): the same ids and pair order, exactly. Returns the measured
+    max |difference| over both outputs (0 where it passes)."""
     got, want = IP._group_pairs_cuda(probes, c), IP._group_pairs_plain(probes, c)
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError("the grouping pre-pass differs from its plain version")
+    diff = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+    if diff or got[0].shape != want[0].shape or got[1].shape != want[1].shape:
+        raise AssertionError("the grouping pre-pass differs from its plain version: "
+                             f"max |difference| {diff}")
+    return float(diff)
 
 
 def _probe_cases(gen, c, p, bs, dev):
@@ -598,7 +713,7 @@ def phase_ivf_kernels(dev, IP, c=IVF_C, cap=IVF_CAP, d=IVF_D, p=IVF_P, bs=IVF_B,
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 5)
-    errs = {"ivf_bucket_probe": 0.0, "ivf_adc": 0.0}
+    errs = {"ivf_bucket_probe": 0.0, "ivf_adc": 0.0, "ivf_group_pairs": 0.0}
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         for metric in ("dot", "l2", "cosine"):
             v, bias, scale = _bucket_store(gen, dtype, metric, dev, c, cap, d)
@@ -609,7 +724,8 @@ def phase_ivf_kernels(dev, IP, c=IVF_C, cap=IVF_CAP, d=IVF_D, p=IVF_P, bs=IVF_B,
                 if metric == "cosine":
                     q = q / q.norm(dim=1, keepdim=True)
                 qf = (q * alpha).to(score_dtype(dtype))
-                _check_grouping(IP, probes, c)
+                errs["ivf_group_pairs"] = max(errs["ivf_group_pairs"],
+                                              _check_grouping(IP, probes, c))
                 kernel, plain = _k3_pair(IP, qf, probes, v, bias, scale)
                 got, want = kernel(), plain()
                 mag = IP._bucket_probe_scores_plain(qf.abs(), probes, v_abs, zeros, scale)
@@ -630,7 +746,8 @@ def phase_ivf_kernels(dev, IP, c=IVF_C, cap=IVF_CAP, d=IVF_D, p=IVF_P, bs=IVF_B,
         for metric in ("l2", "dot"):
             for label, probes in _probe_cases(gen, c, p, bs, dev):
                 q = torch.randn((probes.shape[0], d), generator=gen, device=dev)
-                _check_grouping(IP, probes, c)
+                errs["ivf_group_pairs"] = max(errs["ivf_group_pairs"],
+                                              _check_grouping(IP, probes, c))
                 tabs, _ = adc_tables_probed(codebooks, q, cents, probes, metric=metric)
                 kernel, plain = _k4_pair(IP, tabs, probes, codes, bias)
                 got, want = kernel(), plain()
@@ -652,7 +769,8 @@ IVF_NAT = 2000  # natural modes of the clustered data (bench_all.py:319)
 IVF_CHUNK = 125_000
 IVF_MAIN_CALLS = [(1, "probe"), (8, "probe"), (64, "probe"), (8, "auto")]
 IVF_TIMED_B = (8, 64)
-CROSSOVER_B = (8, 32, 64, 128, 256)
+CROSSOVER_B = (1, 8, 32, 64, 128, 256)
+HOST_SPREAD = 0.4  # host-clock ms of one call moved by this share between runs (PERF.md 7)
 RECALL_MIN = {"raw": 0.95, "pq192": 0.85, "pq96": 0.85}  # test_vector_indexes.py:362,369
 N_FRESH = 1000  # rows upserted after the build: the append path
 IVF_CLUSTERS = 1024
@@ -830,7 +948,7 @@ def _probe_args(idx, q, IP):
         bound = _bound(n_probed * per_bucket + _nbytes(qf) + b * p * cap * 4,
                        2 * b * p * cap * d)
         rows = idx.bucket_vectors[probed].reshape(-1, d)
-        return {"name": "ivf_bucket_probe", "kernel": kernel, "plain": plain,
+        return {"name": "ivf_bucket_probe", "kernel": kernel, "plain": plain, "probe": probe,
                 "lim": lambda: TOL[torch.bfloat16] * IP._bucket_probe_scores_plain(
                     qf.abs(), probe, idx.bucket_vectors.abs(), zeros,
                     idx.bucket_scales).clamp(min=1.0),
@@ -842,7 +960,7 @@ def _probe_args(idx, q, IP):
     cap, m, k = idx.bucket_codes.shape[2], tabs.shape[2], tabs.shape[3]
     codes = _nbytes(idx.bucket_codes[0], idx.bucket_bias[0])
     packed = idx.bucket_codes.shape[1] * 2 == m
-    return {"name": "ivf_adc", "kernel": kernel, "plain": plain,
+    return {"name": "ivf_adc", "kernel": kernel, "plain": plain, "probe": probe,
             "lim": lambda: -1e-5 * IP._adc_bucket_scores_plain(
                 IP.round_tables(tabs).abs(), probe, idx.bucket_codes, zeros),
             # the tables carry bf16 values: 2 bytes an entry
@@ -861,7 +979,8 @@ IVF_MAIN = ("ivf_probe_wgmma", "ivf_probe_f32", "ivf_adc_kernel")
 def phase_ivf_kernels_main(idxs, queries, errs, IP):
     """Phase 6b: K3 and K4 against their plain versions on the indexes'
     own inputs (contiguous copies, bias, probes of the main path's
-    queries), then, at B = 8 and 64, each timed call after the L2 is
+    queries) and the grouping pre-pass against its plain version on the
+    same probes (errs["ivf_group_pairs"]), then, at B = 8 and 64, each timed call after the L2 is
     flushed (a search meets its buckets cold): the call's median ms (CUDA
     events), the kernel alone and the grouping pre-pass alone
     (torch.profiler), the plain version's ms, the bound
@@ -876,8 +995,10 @@ def phase_ivf_kernels_main(idxs, queries, errs, IP):
             torch.cuda.synchronize()
             err = _check_scores(a["name"], got, want, lim)
             errs[a["name"]] = max(errs[a["name"]], err)
-            print(f"phase6 {a['name']} {name} main-path inputs B={b}: max_abs_err {err}",
-                  flush=True)
+            pre = _check_grouping(IP, a["probe"], idx.bucket_bias.shape[0])
+            errs["ivf_group_pairs"] = max(errs["ivf_group_pairs"], pre)
+            print(f"phase6 {a['name']} {name} main-path inputs B={b}: max_abs_err {err}; "
+                  f"grouping pre-pass max |difference| {pre}", flush=True)
         for b in IVF_TIMED_B:
             a = _probe_args(idx, queries[b], IP)
             fns = [("kernel", a["kernel"]), ("plain", a["plain"])]
@@ -898,6 +1019,17 @@ def phase_ivf_kernels_main(idxs, queries, errs, IP):
                 extra = (f"  (earlier bound, f32 tables, {a['bound_f32'][0]:.4f} ms: share "
                          f"{a['bound_f32'][0] / alone:.4f} of the kernel); table lookups "
                          f"{a['wavefronts']():.4f} wavefronts each")
+            if a["name"] == "ivf_bucket_probe" and b == IVF_TIMED_B[-1]:
+                # the grouping pre-pass alone (K3 and K4 run it inside their call)
+                probe, n_slices = a["probe"], idx.bucket_bias.shape[0]
+                for which, fn in (("group_pairs", lambda: IP._group_pairs_cuda(probe, n_slices)),
+                                  ("group_pairs plain",
+                                   lambda: IP._group_pairs_plain(probe, n_slices))):
+                    times[name, b, which] = [_median_ms(fn)]
+                bounds[name, b, "group_pairs"] = _bound(3 * _nbytes(probe), 0)
+                print(f"phase6 ivf_group_pairs {name} B={b}: call "
+                      f"{times[name, b, 'group_pairs'][0]:.4f} ms, plain "
+                      f"{times[name, b, 'group_pairs plain'][0]:.4f} ms", flush=True)
             print(f"phase6 {a['name']} {name} B={b}: call {ms:.4f} ms, kernel alone "
                   f"{alone:.4f} ms device (grouping pre-pass "
                   f"{times[name, b, 'prepass'][0]:.4f} ms), plain "
@@ -909,10 +1041,15 @@ def phase_ivf_kernels_main(idxs, queries, errs, IP):
 
 def phase_ivf_crossover(idxs, queries):
     """Phase 6c: search_arrays with the probe (mode='probe') against the
-    flat scan the auto mode falls back to, host clock per call, for the
-    later re-fit of _flat_beats_probe on this card."""
+    flat scan that auto may take instead, host clock per call (the median
+    of 7, the better of two turns), with the route `_flat_beats_probe`
+    takes at each B. A route that is not the faster one measured here is
+    marked, not asserted: as the slower one where it loses by more than
+    HOST_SPREAD, the spread of host-clock calls between runs, and as within
+    the spread otherwise. Returns {(index, B): (probe ms, flat ms, route)}."""
     from tostore_tpu_torch import FlatVectorIndex
 
+    out = {}
     for name, idx in idxs.items():
         flat = FlatVectorIndex.__new__(FlatVectorIndex)
         flat.metric, flat.corpus = idx.metric, idx.corpus
@@ -926,14 +1063,23 @@ def phase_ivf_crossover(idxs, queries):
                               ("probe", lambda: idx.search_arrays(q, K, mode="probe"))):
                 fn()
                 t = []
-                for _ in range(5):
+                for _ in range(7):
                     t0 = time.perf_counter()
                     fn()
                     t.append((time.perf_counter() - t0) * 1e3)
                 ms[which] = min(ms.get(which, np.inf), float(np.median(t)))
-            row.append(f"B={b} probe {ms['probe']:.3f} flat {ms['flat']:.3f}")
+            route = "flat" if idx._flat_beats_probe(b, idx.nprobe) else "probe"
+            faster = min(ms, key=ms.get)
+            out[name, b] = (ms["probe"], ms["flat"], route)
+            mark = ""
+            if route != faster:
+                mark = (" (the slower one here)" if ms[route] > (1 + HOST_SPREAD) * ms[faster]
+                        else " (the slower one here, within the spread)")
+            row.append(f"B={b} probe {ms['probe']:.3f} flat {ms['flat']:.3f} auto takes {route}"
+                       f"{mark}")
         print(f"phase6 crossover {name} (ms per search_arrays, host clock): " + "; ".join(row),
               flush=True)
+    return out
 
 
 def phase_ivf_profile(idxs, queries):
@@ -1006,7 +1152,9 @@ def _check_group_cands(name, kc, pc, qp, corpus, bias, scale, alpha, tol, group_
 
 def _group_check(T, name, q, c, bias, scale, alpha, gsz, label, errs):
     """One kernel against its plain version, candidates and top-k, with
-    the wrapper's own padding and gsz rule."""
+    the wrapper's own padding and gsz rule; errs is keyed by the kernel's
+    counter (`_f32` for an f32 corpus)."""
+    key = name + ("_f32" if c.dtype == torch.float32 else "")
     if name == "lane_topk_group":
         blk_b, gsz = T._group_plan(q, c, BLK_N, gsz)
         qp = T._pad_queries(q, blk_b, c.dtype)
@@ -1023,50 +1171,113 @@ def _group_check(T, name, q, c, bias, scale, alpha, gsz, label, errs):
     ks, ki = T._topk_pad(*kc, K)
     ps, pi = T._topk_pad(*pc, K)
     err = max(err, _check_topk(ks[:b], ki[:b], ps[:b], pi[:b], TOL[c.dtype]))
-    errs[name] = max(errs[name], err)
-    print(f"phase7 {name} {label} B={b} gsz={gsz} ({kc[0].shape[1] // 256} groups): "
+    errs[key] = max(errs[key], err)
+    print(f"phase7 {key} {label} B={b} gsz={gsz} ({kc[0].shape[1] // 256} groups): "
           f"max_abs_err {err}; {ties} candidate rows differ on near-ties", flush=True)
+    return kc
 
 
-def phase_group_kernels(dev, flat, T):
+def _dead_halves(bias, blk_n, gsz):
+    """bias with whole lane halves dead: lanes 0-63 of the first group's
+    rows, lanes 64-127 of the second's, every row of the third group, and
+    lanes 7 and 100 everywhere."""
+    row = torch.arange(bias.shape[0], device=bias.device)
+    lane, grp = row % 128, row // (blk_n * gsz)
+    dead = (((grp == 0) & (lane < 64)) | ((grp == 1) & (lane >= 64)) | (grp == 2)
+            | (lane == 7) | (lane == 100))
+    return torch.where(dead, torch.full_like(bias, NEG_INF), bias)
+
+
+def _group_pair(T, qt, c, bias, alpha):
+    return (("lane_topk_group", lambda: T._fused_group_emit(
+                qt, c, bias, k=K, alpha=alpha, blk_n=BLK_N)),
+            ("lane_topk_group plain", lambda: T._fused_group_emit_plain(
+                qt, c, bias, k=K, alpha=alpha, blk_n=BLK_N)),
+            ("lane_topk_group_pipe", lambda: T.pipe_topk(qt, c, bias, k=K, alpha=alpha)),
+            ("lane_topk_group_pipe plain", lambda: T._pipe_topk_plain(
+                qt, c, bias, k=K, alpha=alpha)))
+
+
+GROUP_NAMES = ("lane_scan_group", "lane_topk")  # the grouped kernels' names, all corpus types
+
+
+def phase_group_kernels(dev, flat, f32_idx, T):
     """Phase 7: K5 and K6 against their plain versions on random inputs and
     on the main path's corpus, their device times and top-10 agreement."""
     rng = np.random.default_rng(SEED + 7)
-    errs = {"lane_topk_group": 0.0, "lane_topk_group_pipe": 0.0}
+    errs = {name + sfx: 0.0 for name in ("lane_topk_group", "lane_topk_group_pipe")
+            for sfx in ("", "_f32")}
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         for metric in ("dot", "l2"):
             c, bias, scale, alpha = _corpus(rng, CHECK_N, dtype, metric, dev)
+            label = f"{str(dtype)[6:]} {metric}"
             for b in GROUP_B:
                 q = torch.from_numpy(rng.standard_normal((b, DIMS), dtype=np.float32)).to(dev)
-                label = f"{str(dtype)[6:]} {metric}"
                 _group_check(T, "lane_topk_group", q, c, bias, scale, alpha, GROUP_PARTIAL_GSZ,
                              label, errs)
                 _group_check(T, "lane_topk_group_pipe", q, c, bias, None, alpha, None, label,
                              errs)
-            del c, bias, scale
+            # whole lane halves dead, B = 72: no multiple of either query tile;
+            # K6's candidates must equal K5's bit for bit
+            q = torch.from_numpy(rng.standard_normal((72, DIMS), dtype=np.float32)).to(dev)
+            dead = _dead_halves(bias, BLK_N, 4)
+            k5 = _group_check(T, "lane_topk_group", q, c, dead, None, alpha, 4,
+                              label + " dead lane halves", errs)
+            k6 = _group_check(T, "lane_topk_group_pipe", q, c, dead, None, alpha, 4,
+                              label + " dead lane halves", errs)
+            if not (torch.equal(k5[0], k6[0]) and torch.equal(k5[1], k6[1])):
+                raise AssertionError(f"{label}: K6's candidates differ from K5's")
+            del c, bias, scale, dead
+
+    times, bounds = {}, {}
+    # the f32 FMA kernels on the f32 index's corpus
+    c = f32_idx.corpus.vectors
+    bias, alpha, _ = f32_idx._bias_alpha(None)
+    b = GROUP_TIMED_B[-1]
+    qt, _, _ = f32_idx._prep_queries(rng.standard_normal((b, DIMS), dtype=np.float32))
+    for name in ("lane_topk_group", "lane_topk_group_pipe"):
+        _group_check(T, name, qt, c, bias, None, alpha, None, "f32 index", errs)
+    pair = _group_pair(T, qt, c, bias, alpha)
+    for name, fn in list(pair) + list(reversed(pair)):
+        times.setdefault(("float32", b, name), []).append(_median_ms(fn, reps=5))
+    groups = -(-(c.shape[0] // BLK_N) // max(1, c.shape[0] // BLK_N // 16))
+    bounds["float32", b] = _bound(_nbytes(c, bias) + b * c.shape[1] * 4 + b * groups * 256 * 8,
+                                  2 * b * c.shape[0] * c.shape[1], "f32")
+    print(f"phase7 f32 kernels N={c.shape[0]} B={b}: " + "  ".join(
+        f"{name} {min(times['float32', b, name]):.4f} ms" for name, _ in pair)
+        + f"  |  bound {bounds['float32', b][0]:.4f} ms ({bounds['float32', b][1]})", flush=True)
 
     c = flat.corpus.vectors
     bias, alpha, scale = flat._bias_alpha(None)
     if scale is not None:
         raise AssertionError("the main path's bf16 corpus carries no row scale")
-    times, bounds, agree, total = {}, {}, {}, 0
+    agree, total = {}, 0
+    plan = T._group_grid_plan
     for b in GROUP_TIMED_B:
         qt, _, _ = flat._prep_queries(rng.standard_normal((b, DIMS), dtype=np.float32))
-        for name in errs:
+        for name in ("lane_topk_group", "lane_topk_group_pipe"):
             _group_check(T, name, qt, c, bias, None, alpha, None, "main-path inputs", errs)
-        pair = (("lane_topk_group", lambda: T._fused_group_emit(
-                    qt, c, bias, k=K, alpha=alpha, blk_n=BLK_N)),
-                ("lane_topk_group plain", lambda: T._fused_group_emit_plain(
-                    qt, c, bias, k=K, alpha=alpha, blk_n=BLK_N)),
-                ("lane_topk_group_pipe", lambda: T.pipe_topk(qt, c, bias, k=K, alpha=alpha)),
-                ("lane_topk_group_pipe plain", lambda: T._pipe_topk_plain(
-                    qt, c, bias, k=K, alpha=alpha)))
+        pair = _group_pair(T, qt, c, bias, alpha)
         qb = qt.to(c.dtype)
         product = ("product", lambda: torch.mm(qb, c.t(), out_dtype=torch.float32))
         for name, fn in list(pair) + [product] + list(reversed(pair)):  # twice, in turns
             times.setdefault((b, name), []).append(_median_ms(fn))
         for name, fn in pair[::2]:  # the kernel alone, device time
-            times[b, name + " alone"] = [_kernel_device_ms(fn, names=("lane_topk",))]
+            times[b, name + " alone"] = [_kernel_device_ms(fn, names=GROUP_NAMES)]
+        # each query tile width forced, kernel alone: what the grid plan chooses between
+        width = {}
+        for tile_b in T.GROUP_TILE_B:
+            T._group_grid_plan = lambda b_pad, *_, tile_b=tile_b: (tile_b, -(-b_pad // tile_b))
+            try:
+                for name, fn in pair[::2]:
+                    width[name, tile_b] = _kernel_device_ms(fn, names=GROUP_NAMES)
+            finally:
+                T._group_grid_plan = plan
+        n_groups = c.shape[0] // (32 * BLK_N)
+        print(f"phase7 B={b} query tile widths (kernel alone, ms; the plan takes "
+              f"{plan(qt.shape[0], n_groups, T._sm_count(c.device))[0]}): " + "  ".join(
+                  f"{name} NQ={tile_b} {ms:.4f}" for (name, tile_b), ms in width.items()),
+              flush=True)
         _, ei = T.flat_topk_xla(qt, c, bias, alpha, K)
         ei = ei.cpu().tolist()
         for name, fn in pair[::2]:
@@ -1075,12 +1286,14 @@ def phase_group_kernels(dev, flat, T):
             agree[name] = agree.get(name, 0) + sum(len(set(x) & set(y)) for x, y in zip(ki, ei))
         total += b * K
         # K5 and K6 write [B, 16 groups * 256] candidates at gsz 32
-        bounds[b] = _scan_bound(b, c, bias, None, c.shape[0] // (32 * BLK_N) * 256)
+        bounds[b] = _scan_bound(b, c, bias, None, n_groups * 256)
         print(f"phase7 B={b}: " + "  ".join(f"{name} {min(times[b, name]):.4f} ms"
                                              for name, _ in list(pair) + [product])
               + "  |  kernel alone (device): " + "  ".join(
                   f"{name} {times[b, name + ' alone'][0]:.4f} ms" for name, _ in pair[::2])
-              + f"  |  bound {bounds[b][0]:.4f} ms ({bounds[b][1]})", flush=True)
+              + f"  |  bound {bounds[b][0]:.4f} ms ({bounds[b][1]}), share "
+              + " / ".join(f"{bounds[b][0] / times[b, name + ' alone'][0]:.4f}"
+                           for name, _ in pair[::2]) + " of the kernels", flush=True)
     for name, n in agree.items():
         rate = n / total
         print(f"phase7 {name} top-{K} agreement with the exact scan: {rate} over "
@@ -1098,8 +1311,11 @@ HYBRID_FLAT_CALLS = [(1, "auto"), (8, "auto"), (32, "auto"), (256, "auto"), (256
 HYBRID_GROUP_B = (128, 256)
 HYBRID_IVF_CALLS = [(8, "probe"), (64, "probe")]
 HYBRID_IVF = ("raw", "pq192")
-SIX_KERNELS = ("lane_topk_acc", "lane_topk_emit", "ivf_bucket_probe", "ivf_adc",
-               "lane_topk_group", "lane_topk_group_pipe")
+HYBRID_F32_CALLS = [(8, "auto"), (256, "fused")]
+HYBRID_F32_GROUP_B = 128
+HYBRID_KERNELS = ("lane_topk_acc", "lane_topk_emit", "ivf_bucket_probe", "ivf_adc",
+                  "lane_topk_group", "lane_topk_group_pipe", "lane_topk_acc_f32",
+                  "lane_topk_emit_f32", "lane_topk_group_f32", "lane_topk_group_pipe_f32")
 
 
 def _hybrid_conditions(QC):
@@ -1134,10 +1350,11 @@ def _compile_mask(filters, cond, corpus):
     return filters.device_mask(cond, fc, corpus.capacity)
 
 
-def phase_hybrid(flat, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP):
-    """Phase 8: filtered search through the flat and IVF indexes and K5/K6
-    on the filtered bias, every kernel counter zeroed just before and read
-    just after; predicates, tombstones, agreement and recall checked."""
+def phase_hybrid(flat, f32_idx, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP):
+    """Phase 8: filtered search through the flat (bf16 and f32) and IVF
+    indexes and K5/K6 on the filtered bias, every kernel counter zeroed
+    just before and read just after; predicates, tombstones, agreement and
+    recall checked."""
     from tostore_tpu_torch.query import QueryCondition
     from tostore_tpu_torch.vector import filters
 
@@ -1145,7 +1362,7 @@ def phase_hybrid(flat, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP):
     n = IVF_N + N_FRESH
     price = rng.random(n, dtype=np.float32)
     ts_null = np.arange(n) % TS_NULL_EVERY == 0
-    idxs = {"flat": flat, **{name: ivf_idxs[name] for name in HYBRID_IVF}}
+    idxs = {"flat": flat, "f32": f32_idx, **{name: ivf_idxs[name] for name in HYBRID_IVF}}
     t0 = time.perf_counter()
     for idx in idxs.values():
         _write_filter_columns(idx.corpus, price, ts_null)
@@ -1177,7 +1394,10 @@ def phase_hybrid(flat, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP):
     rng = np.random.default_rng(SEED + 9)
     fq = {b: rng.standard_normal((b, DIMS), dtype=np.float32)
           for b in sorted({b for b, _ in HYBRID_FLAT_CALLS} | set(HYBRID_GROUP_B))}
-    c = flat.corpus.vectors
+    c, c32 = flat.corpus.vectors, f32_idx.corpus.vectors
+    # the f32 index holds the first SIDE_ROWS pks only: the ts range misses it
+    f32_conds = [name for name in conds
+                 if int((masks["f32", name] & f32_idx.corpus.valid).sum()) >= 1000]
     for table in (T.LAUNCHES, IP.LAUNCHES):
         for key in table:
             table[key] = 0
@@ -1192,6 +1412,15 @@ def phase_hybrid(flat, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP):
             res["lane_topk_group", name, b] = T._fused_group_emit(
                 qt, c, bias, k=K, alpha=alpha, blk_n=BLK_N)
             res["lane_topk_group_pipe", name, b] = T.pipe_topk(qt, c, bias, k=K, alpha=alpha)
+        if name in f32_conds:
+            for b, mode in HYBRID_F32_CALLS:
+                res["f32", name, b, mode] = f32_idx.search_arrays(
+                    fq[b], K, slot_mask=masks["f32", name], mode=mode)
+            bias, alpha, _ = f32_idx._bias_alpha(masks["f32", name])
+            qt, _, _ = f32_idx._prep_queries(fq[HYBRID_F32_GROUP_B])
+            res["lane_topk_group_f32", name] = T._fused_group_emit(
+                qt, c32, bias, k=K, alpha=alpha, blk_n=BLK_N)
+            res["lane_topk_group_pipe_f32", name] = T.pipe_topk(qt, c32, bias, k=K, alpha=alpha)
         for key in HYBRID_IVF:
             for b, mode in HYBRID_IVF_CALLS:
                 res[key, name, b, mode] = idxs[key].search_arrays(
@@ -1199,7 +1428,7 @@ def phase_hybrid(flat, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP):
     torch.cuda.synchronize()
     launches = {**T.LAUNCHES, **IP.LAUNCHES}
     print(f"phase8 launches on the hybrid path: {launches}", flush=True)
-    for key in SIX_KERNELS:  # the f32 FMA kernels serve no bf16 path
+    for key in HYBRID_KERNELS:
         if launches[key] <= 0:
             raise AssertionError(f"kernel {key} was not launched on the hybrid path")
 
@@ -1235,6 +1464,25 @@ def phase_hybrid(flat, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP):
                 agree[kname] = agree.get(kname, 0) + sum(
                     len(set(x) & set(y)) for x, y in zip(ki.cpu().tolist(), ei))
                 total[kname] = total.get(kname, 0) + b * K
+        for b, mode in HYBRID_F32_CALLS if name in f32_conds else []:
+            _, _, pks = res["f32", name, b, mode]
+            check_hits(f"f32 {name} B={b} {mode}", cond, pks, deleted)
+            _, _, epks = f32_idx.search_arrays(fq[b], K, slot_mask=masks["f32", name],
+                                               mode="exact")
+            agree["f32"] = agree.get("f32", 0) + sum(
+                len(set(x) & set(y)) for x, y in zip(pks.tolist(), epks.tolist()))
+            total["f32"] = total.get("f32", 0) + b * K
+        if name in f32_conds:
+            bias, alpha, _ = f32_idx._bias_alpha(masks["f32", name])
+            qt, _, _ = f32_idx._prep_queries(fq[HYBRID_F32_GROUP_B])
+            _, ei = T.flat_topk_xla(qt, c32, bias, alpha, K)
+            ei = ei.cpu().tolist()
+            for kname in ("lane_topk_group_f32", "lane_topk_group_pipe_f32"):
+                _, ki = res[kname, name]
+                check_hits(f"{kname} {name}", cond,
+                           f32_idx.corpus.pks_for_slots(ki.cpu().numpy()), deleted)
+                agree[kname] = sum(len(set(x) & set(y)) for x, y in zip(ki.cpu().tolist(), ei))
+                total[kname] = HYBRID_F32_GROUP_B * K
         for key in HYBRID_IVF:
             for b, mode in HYBRID_IVF_CALLS:
                 _, _, pks = res[key, name, b, mode]
@@ -1248,8 +1496,9 @@ def phase_hybrid(flat, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP):
                         for key in agree)
         print(f"phase8 {name}: every hit satisfies it, no deleted pk; top-{K} agreement "
               f"(recall for IVF) with exact under the mask: {row}", flush=True)
-        for key in ("flat", "lane_topk_group", "lane_topk_group_pipe"):
-            if agree[key] / total[key] < AGREEMENT_MIN:
+        for key in ("flat", "lane_topk_group", "lane_topk_group_pipe", "f32",
+                    "lane_topk_group_f32", "lane_topk_group_pipe_f32"):
+            if key in agree and agree[key] / total[key] < AGREEMENT_MIN:
                 raise AssertionError(f"{name} {key}: top-{K} agreement "
                                      f"{agree[key] / total[key]} < {AGREEMENT_MIN}")
     return launches
@@ -1265,7 +1514,7 @@ def _print_ptxas(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            stem = re.search(r"(lane_scan_kernel|lane_topk\w*?_kernel|ivf_\w+?_kernel)(\w*)",
+            stem = re.search(r"(lane_scan\w*?_kernel|lane_topk\w*?_kernel|ivf_\w+?_kernel)(\w*)",
                              m.group(1))
             name = (stem.group(1) + stem.group(2).split("EEEv")[0] if stem
                     else m.group(1))[:72]
@@ -1307,13 +1556,14 @@ def main() -> int:
         raise AssertionError("a TMA / wgmma lane-scan or IVF kernel spills registers")
 
     errs = phase_kernels(dev, T)
-    idxs, deleted = build_indexes(dev)
-    launches, queries = phase_main_path(idxs, deleted, T)
-    times, bounds = phase_main_kernels(idxs, queries, T, errs)
+    idxs, side, deleted = build_indexes(dev)
+    launches, queries = phase_main_path(idxs, side, deleted, T)
+    times, bounds = phase_main_kernels(idxs, side, queries, T, errs)
+    phase_auto_route([idxs["l2"], side["int8"], side["float32"]], queries, T)
     if "--profile" in sys.argv[1:]:
         phase_profile(idxs["l2"], queries, T)
-    flat = idxs.pop("l2")  # phases 7 and 8 run on it
-    del idxs
+    flat, f32_idx = idxs.pop("l2"), side.pop("float32")  # phases 7 and 8 run on them
+    del idxs, side
     torch.cuda.empty_cache()
 
     errs.update(phase_ivf_kernels(dev, IP))
@@ -1324,12 +1574,14 @@ def main() -> int:
     phase_ivf_crossover(ivf_idxs, ivf_queries)
     if "--profile" in sys.argv[1:]:
         phase_ivf_profile(ivf_idxs, ivf_queries)
-    group_errs, group_times, group_bounds = phase_group_kernels(dev, flat, T)
+    group_errs, group_times, group_bounds = phase_group_kernels(dev, flat, f32_idx, T)
     errs.update(group_errs)
-    hybrid_launches = phase_hybrid(flat, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, IP)
+    hybrid_launches = phase_hybrid(flat, f32_idx, deleted, ivf_idxs, ivf_deleted, ivf_queries,
+                                   T, IP)
 
-    src = "tostore_tpu_torch/csrc/lane_topk.cu"
+    f32_src = "tostore_tpu_torch/csrc/lane_topk.cu"
     scan_src = "tostore_tpu_torch/csrc/lane_scan.cuh"
+    group_src = "tostore_tpu_torch/csrc/lane_scan_group.cu"
     ivf_src = "tostore_tpu_torch/csrc/ivf_probe.cu"
 
     def entry(name, source, replaces, launched, ms, plain_ms, bound, product_ms=None,
@@ -1358,14 +1610,39 @@ def main() -> int:
         entry("ivf_adc", ivf_src, "tostore_tpu/ops/ivfprobe.py:44", ivf_launches["ivf_adc"],
               ivf_times["pq192", 8, "kernel"], ivf_times["pq192", 8, "plain"],
               ivf_bounds["pq192", 8], kernel_ms=ivf_times["pq192", 8, "kernel_alone"]),
-        entry("lane_topk_group", src, "tostore_tpu/ops/topk.py:361",
+        entry("lane_topk_group", group_src, "tostore_tpu/ops/topk.py:361",
               hybrid_launches["lane_topk_group"], group_times[256, "lane_topk_group"],
               group_times[256, "lane_topk_group plain"], group_bounds[256],
               group_times[256, "product"], group_times[256, "lane_topk_group alone"]),
-        entry("lane_topk_group_pipe", src, "experiments/_exp_pipe.py:75",
+        entry("lane_topk_group_pipe", group_src, "experiments/_exp_pipe.py:75",
               hybrid_launches["lane_topk_group_pipe"], group_times[256, "lane_topk_group_pipe"],
               group_times[256, "lane_topk_group_pipe plain"], group_bounds[256],
               group_times[256, "product"], group_times[256, "lane_topk_group_pipe alone"]),
+        # the f32 FMA kernels, on the f32 index (SIDE_ROWS rows)
+        entry("lane_topk_acc_f32", f32_src, "tostore_tpu/ops/topk.py:268",
+              launches["lane_topk_acc_f32"], times["float32", 8, "lane_topk_acc"],
+              times["float32", 8, "plain"], bounds["float32", 8],
+              times["float32", 8, "product"]),
+        entry("lane_topk_emit_f32", f32_src, "tostore_tpu/ops/topk.py:331",
+              launches["lane_topk_emit_f32"], times["float32", 256, "lane_topk_emit"],
+              times["float32", 256, "plain"], bounds["float32", 256],
+              times["float32", 256, "product"]),
+        entry("lane_topk_group_f32", f32_src, "tostore_tpu/ops/topk.py:361",
+              hybrid_launches["lane_topk_group_f32"],
+              group_times["float32", 256, "lane_topk_group"],
+              group_times["float32", 256, "lane_topk_group plain"], group_bounds["float32", 256]),
+        entry("lane_topk_group_pipe_f32", f32_src, "experiments/_exp_pipe.py:75",
+              hybrid_launches["lane_topk_group_pipe_f32"],
+              group_times["float32", 256, "lane_topk_group_pipe"],
+              group_times["float32", 256, "lane_topk_group_pipe plain"],
+              group_bounds["float32", 256]),
+        # K3 / K4's grouping pre-pass, alone, on the raw index's B = 64 probes
+        # (no TPU kernel: the device form of the port's own stable sort by bucket)
+        entry("ivf_group_pairs", ivf_src,
+              "none (tostore_tpu_torch/ops/ivfprobe.py _group_pairs_plain)",
+              ivf_launches["ivf_group_pairs"], ivf_times["raw", 64, "group_pairs"],
+              ivf_times["raw", 64, "group_pairs plain"], ivf_bounds["raw", 64, "group_pairs"],
+              kernel_ms=ivf_times["raw", 64, "prepass"]),
     ]}
     print("build s (train + buckets): " + json.dumps(build_s), flush=True)
     print(json.dumps(report), flush=True)

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: K1 (`lane_topk_acc`; f32 corpora
 `lane_topk_acc_f32`), K2 (`lane_topk_emit`; f32 `lane_topk_emit_f32`), K3
-(`ivf_bucket_probe`), K4 (`ivf_adc`), K5
-(`lane_topk_group`) and K6 (`lane_topk_group_pipe`) against their plain
-PyTorch versions on the same CUDA tensors, and the flat and IVF indexes on
-the card (filtered too) against the same indexes on the CPU.
+(`ivf_bucket_probe`), K4 (`ivf_adc`), K5 (`lane_topk_group`; f32
+`lane_topk_group_f32`) and K6 (`lane_topk_group_pipe`; f32
+`lane_topk_group_pipe_f32`) against their plain PyTorch versions on the
+same CUDA tensors, and the flat and IVF indexes on the card (filtered too)
+against the same indexes on the CPU.
 
 Every test needs an NVIDIA GPU (marker `cuda`) and skips without one. This
 file imports no JAX, so it runs on a machine without it; tests/conftest.py
@@ -170,10 +171,11 @@ def _check_group_cands(kc, pc, qp, corpus, bias, scale, alpha, tol, group_rows):
 def test_k5_matches_plain(cuda, dtype, metric, b, n, gsz):
     tx, alpha, _ = torch_scan_inputs(b + n, b, n, 256, dtype, metric, device=cuda)
     q, c, bias, scale = tx
+    name = _kernel_name("lane_topk_group", dtype)
     before = _launches()
     ks, ki = ttopk._fused_group_emit(q, c, bias, k=10, alpha=alpha, blk_n=2048, gsz=gsz,
                                      row_scale=scale)
-    assert ttopk.LAUNCHES["lane_topk_group"] == before["lane_topk_group"] + 1
+    assert ttopk.LAUNCHES[name] == before[name] + 1
     ps, pi = ttopk._fused_group_emit_plain(q, c, bias, k=10, alpha=alpha, blk_n=2048, gsz=gsz,
                                            row_scale=scale)
     torch.cuda.synchronize()
@@ -190,9 +192,10 @@ def test_k5_matches_plain(cuda, dtype, metric, b, n, gsz):
 def test_k6_matches_plain_and_k5(cuda, dtype, b, n, gsz):
     tx, alpha, _ = torch_scan_inputs(b + n + 1, b, n, 256, dtype, "l2", device=cuda)
     q, c, bias, _ = tx
+    name = _kernel_name("lane_topk_group_pipe", dtype)
     before = _launches()
     ks, ki = ttopk.pipe_topk(q, c, bias, k=10, alpha=alpha, gsz=gsz)
-    assert ttopk.LAUNCHES["lane_topk_group_pipe"] == before["lane_topk_group_pipe"] + 1
+    assert ttopk.LAUNCHES[name] == before[name] + 1
     ps, pi = ttopk._pipe_topk_plain(q, c, bias, k=10, alpha=alpha, gsz=gsz)
     torch.cuda.synchronize()
     assert_topk_match(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL[dtype])
@@ -204,6 +207,122 @@ def test_k6_matches_plain_and_k5(cuda, dtype, b, n, gsz):
     # the same scoring code as K5: the same candidates, bit for bit
     k5 = ttopk._lane_topk_group_cuda(qp, c, bias, None, alpha, 2048, g)
     assert torch.equal(kc[0], k5[0]) and torch.equal(kc[1], k5[1])
+
+
+def _k5_k6_vs_plain(tx, alpha, dtype, gsz, k6=True):
+    """K5's candidates against the plain version's on padded queries; K6's,
+    where gsz divides the blocks, equal to K5's bit for bit."""
+    q, c, bias, scale = tx
+    blk_b, g = ttopk._group_plan(q, c, 2048, gsz)
+    qp = ttopk._pad_queries(q, blk_b, c.dtype)
+    k5 = ttopk._lane_topk_group_cuda(qp, c, bias, scale, alpha, 2048, g)
+    pc = ttopk._group_cands_plain(qp, c, bias, scale, alpha, 2048, g)
+    torch.cuda.synchronize()
+    _check_group_cands(k5, pc, qp, c, bias, scale, alpha, TOL[dtype], g * 2048)
+    if k6:
+        if scale is not None:  # K6 takes no row scale
+            k5 = ttopk._lane_topk_group_cuda(qp, c, bias, None, alpha, 2048, g)
+        k6c = ttopk._lane_topk_group_pipe_cuda(qp, c, bias, alpha, 2048, g)
+        assert torch.equal(k6c[0], k5[0]) and torch.equal(k6c[1], k5[1])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("tile_b", [32, 64])
+@pytest.mark.parametrize("b,n,gsz", [
+    (40, 4 * 2048, 2),    # B no multiple of either query tile
+    (100, 13 * 2048, 5),  # a partial last group (5, 5, 3 blocks); K5 only
+    (256, 8 * 2048, 1),   # groups of one block
+    (128, 6 * 2048, 6),   # one group
+])
+def test_k5_k6_query_tile_widths(cuda, monkeypatch, dtype, tile_b, b, n, gsz):
+    """Both query widths of the TMA / wgmma grouped kernels, forced."""
+    monkeypatch.setattr(ttopk, "_group_grid_plan",
+                        lambda b_pad, n_groups, sms: (tile_b, -(-b_pad // tile_b)))
+    tx, alpha, _ = torch_scan_inputs(b + n + tile_b, b, n, 256, dtype, "l2", device=cuda)
+    before = _launches()
+    _k5_k6_vs_plain(tx, alpha, dtype, gsz, k6=(n // 2048) % gsz == 0)
+    assert ttopk.LAUNCHES["lane_topk_group"] > before["lane_topk_group"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("half", [0, 1])
+def test_k5_k6_dead_lane_half(cuda, dtype, half):
+    """Every row of one lane half dead (lanes 0-63 or 64-127), and a few
+    lanes of the other half dead too: their candidates stay at (float32
+    min, row 0) and the live half's are the plain version's."""
+    tx, alpha, _ = torch_scan_inputs(17 + half, 72, 6 * 2048, 256, dtype, "dot", device=cuda)
+    q, c, bias, scale = tx
+    lane = torch.arange(c.shape[0], device=cuda) % 128
+    dead = (lane // 64 == half) | (lane == 64 * (1 - half) + 5) | (lane == 64 * (1 - half) + 63)
+    bias = torch.where(dead, torch.full_like(bias, NEG_INF), bias)
+    _k5_k6_vs_plain((q, c, bias, scale), alpha, dtype, 3)
+    qp = ttopk._pad_queries(q, 72, c.dtype)
+    ks, ki = ttopk._lane_topk_group_cuda(qp, c, bias, scale, alpha, 2048, 3)
+    dead_pos = (torch.arange(ks.shape[1], device=cuda) % 128) // 64 == half
+    assert bool((ks[:, dead_pos] <= NEG_INF / 2).all())
+    tops = dead_pos & (torch.arange(ks.shape[1], device=cuda) % 256 < 128)
+    assert bool((ki[:, tops] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("b,d", [(40, 128), (72, 2048), (256, 2048)])
+def test_k5_k6_depths(cuda, dtype, b, d):
+    """D = 128: two k-steps a tile, fewer than K6's four selection slices;
+    D = 2048: 32 k-steps, the ring of 8 stages wraps within a tile."""
+    tx, alpha, _ = torch_scan_inputs(b + d, b, 8 * 2048, d, dtype, "dot", device=cuda)
+    _k5_k6_vs_plain(tx, alpha, dtype, 4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b", [40, 256])
+def test_flat_auto_on_card_launches_k2(cuda, monkeypatch, dtype, b):
+    """On a CUDA corpus `auto` sends B > 32 to K2; the result is the plain
+    version's."""
+    monkeypatch.setattr(ttopk, "MIN_FUSED_N", 4096)
+    tx, alpha, _ = torch_scan_inputs(b, b, 8192, 256, dtype, "l2", device=cuda)
+    name = _kernel_name("lane_topk_emit", dtype)
+    before = _launches()
+    ks, ki = ttopk.flat_search(*tx[:3], k=10, alpha=alpha, mode="auto", row_scale=tx[3])
+    assert ttopk.LAUNCHES[name] == before[name] + 1
+    ps, pi = ttopk._fused_block_emit_plain(*tx[:3], k=10, alpha=alpha, blk_n=4096,
+                                           row_scale=tx[3])
+    torch.cuda.synchronize()
+    assert_topk_match(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flat_auto_on_card_past_256_queries(cuda, monkeypatch, dtype):
+    """Past 256 queries `auto` keeps bf16 on K2 and sends f32 to the plain
+    lane scan (no launch); each gives its plain version's result (the lane
+    scan's on the CPU)."""
+    monkeypatch.setattr(ttopk, "MIN_FUSED_N", 4096)
+    tx, alpha, _ = torch_scan_inputs(512, 512, 8192, 256, dtype, "l2", device=cuda)
+    name = _kernel_name("lane_topk_emit", dtype)
+    before = _launches()
+    ks, ki = ttopk.flat_search(*tx[:3], k=10, alpha=alpha, mode="auto", row_scale=tx[3])
+    assert ttopk.LAUNCHES[name] == before[name] + (dtype != "float32")
+    if dtype == "float32":
+        ps, pi = ttopk.flat_topk_lane(*(t.cpu() for t in tx[:3]), k=10, alpha=alpha)
+    else:
+        ps, pi = ttopk._fused_block_emit_plain(*tx[:3], k=10, alpha=alpha, blk_n=4096)
+    torch.cuda.synchronize()
+    assert_topk_match(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL[dtype])
+
+
+@pytest.mark.parametrize("trained", [False, True])
+def test_ivf_index_on_card_maybe_compact(cuda, trained):
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2000, 64)).astype(np.float32)
+    idx = IVFVectorIndex(64, "l2", "bfloat16", num_clusters=8, nprobe=8,
+                         min_train_size=100 if trained else 10**9, device=cuda)
+    idx.upsert(list(range(2000)), x)
+    assert idx.trained == trained
+    idx.delete(list(range(0, 100)))
+    assert idx.maybe_compact(0.10) is False and idx.corpus.deleted_count == 100
+    idx.delete(list(range(100, 300)))
+    assert idx.quiescent_s() >= 0.0
+    assert idx.maybe_compact(0.10) is True and idx.corpus.deleted_count == 0
+    assert idx.search(x[777], top_k=1)[0].primary_key == 777
 
 
 def test_k5_k6_raise_on_bad_cuda_input(cuda):

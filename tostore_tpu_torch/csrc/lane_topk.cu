@@ -1,17 +1,16 @@
-// Lane top-k scan kernels for Hopper (sm_90a): the port's K5 and K6, and
-// K1 and K2 for f32 corpora (`lane_topk_acc_f32`, `lane_topk_emit_f32`).
-// bf16 and int8 corpora take K1 and K2 of lane_scan.cuh (TMA, wgmma, warp
-// specialisation); f32 ones stay on this template's f32 FMA, because TF32
-// would break their exactness.
+// Lane top-k scan kernels for f32 corpora on Hopper (sm_90a): K1
+// `lane_topk_acc_f32`, K2 `lane_topk_emit_f32`, K5 `lane_topk_group_f32` and
+// K6 `lane_topk_group_pipe_f32`. bf16 and int8 corpora take the TMA + wgmma
+// kernels of lane_scan.cuh (K1, K2) and lane_scan_group.cu (K5, K6); f32
+// ones stay on this template's f32 FMA, because TF32 would break their
+// exactness.
 //
-// K1 `lane_topk_acc_f32` replaces tostore_tpu/ops/topk.py::_lane_topk_kernel
-// (called by fused_flat_topk); K2 `lane_topk_emit_f32` replaces
-// tostore_tpu/ops/topk.py::_lane_topk_block_kernel (called by
-// _fused_block_emit); K5 `lane_topk_group` replaces
+// K1 replaces tostore_tpu/ops/topk.py::_lane_topk_kernel (called by
+// fused_flat_topk); K2 replaces tostore_tpu/ops/topk.py::_lane_topk_block_kernel
+// (called by _fused_block_emit); K5 replaces
 // tostore_tpu/ops/topk.py::_lane_topk_group_kernel (called by
-// _fused_group_emit); K6 `lane_topk_group_pipe` replaces
-// experiments/_exp_pipe.py::_pipe_kernel (called by pipe_topk). All compute,
-// for every corpus block of `blk_n` rows,
+// _fused_group_emit); K6 replaces experiments/_exp_pipe.py::_pipe_kernel
+// (called by pipe_topk). All compute, for every corpus block of `blk_n` rows,
 //
 //     s[b, row] = alpha * (row_scale[row] * (q[b] . c[row])) + bias[row]
 //
@@ -29,28 +28,20 @@
 // per-lane top-T: the same result as the reference, ties aside. K5 and K6
 // give each CTA whole groups, so their candidates are the reference's.
 //
-// What bounds them on an H100 SXM (data sheet: 3.35 TB/s HBM, 989 TFLOP/s
-// dense bf16): at B <= 32 (K1) the corpus is read once, 1.54 GB at
-// 1M x 768 bf16, so about 0.46 ms of HBM time is the floor and the dot is
-// far below the tensor cores' rate. K2 and K5 at B = 256 do 403 GFLOP per
-// scan, close to the ridge. The design:
-//   - bf16 and int8 corpora (K5, K6) run on the tensor cores through WMMA
-//     (bf16 in, f32 accumulate, m16n16k16; int8 rows widen exactly to bf16
-//     in shared memory); f32 corpora use f32 FMA, because TF32 would break
-//     their exactness.
+// What bounds them on an H100 SXM (data sheet: 3.35 TB/s HBM, 67 TFLOP/s
+// f32 outside the tensor cores): 2 B N D operations, so the FMA rate from
+// about B = 8 on. The design:
 //   - The corpus streams through a ring of STAGES shared-memory tiles
 //     filled by cp.async, so several tiles are in flight per CTA while the
-//     current one is multiplied: what a memory-bound scan needs. A CTA's
-//     blocks are contiguous rows, so the ring runs across 128-row tiles and
-//     blocks without draining.
-//   - Each CTA serves BM queries (f32 K1: 8 for a batch of up to 8, else
-//     16; f32 K2, K5, K6: 32), so the corpus is read once per query tile; query
+//     current one is multiplied. A CTA's blocks are contiguous rows, so the
+//     ring runs across 128-row tiles and blocks without draining.
+//   - Each CTA serves BM queries (K1: 8 for a batch of up to 8, else 16;
+//     K2, K5, K6: 32), so the corpus is read once per query tile; query
 //     tiles of one split are adjacent in the launch order and meet the same
 //     corpus rows in L2. Registers bound BM: two CTAs per SM leave 128 a
 //     thread, and each (query, lane) pair a thread selects for costs five.
 //     K5 keeps a running top-2 per pair besides the block's, another four
-//     registers, so it runs one CTA per SM (255 registers a thread); at
-//     1M rows its 16 groups x B/32 query tiles fill one wave at most.
+//     registers, so it runs one CTA per SM (255 registers a thread).
 //   - Scores never leave the SM: a [BM, 128] score tile in shared memory
 //     feeds the per-lane selection, one thread per (lane, half of the
 //     query tile), which keeps its pairs' selection state in registers.
@@ -59,18 +50,14 @@
 //     the list's last entry, which each thread keeps in a register; an
 //     update then reads the list into registers with independent loads.
 //   - K6 is K5 with the scoring and the selection on different warps
-//     (warp specialization): 8 MMA warps score tile t+1 into one of two
+//     (warp specialization): 8 scoring warps score tile t+1 into one of two
 //     [32, 128] score tiles while 8 selection warps reduce tile t from the
 //     other, handing them over with named barriers (bar.sync / bar.arrive).
 //     With 512 threads a CTA has 128 registers a thread, so the selection
 //     warps keep the group's running top-2 in shared memory, each thread
-//     its own entries. It answers on this card the question the TPU's
-//     software pipeline answered "no" to (tostore_tpu/ops/topk.py:105-119):
-//     does overlapping the selection with the matmul pay?
+//     its own entries.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
 
 #include <cfloat>
 #include <cstdint>
@@ -84,28 +71,15 @@ constexpr int STAGES = 4;
 constexpr float NEG_INF = -FLT_MAX;  // float32 min, as runtime.NEG_INF
 constexpr int SP = LANE + 4;         // score tile row pitch (floats)
 
-// Per corpus type: query element type, depth columns per pipeline step
-// (KC), shared-memory row pitch in elements (KP, padded by 16 bytes so
-// rows start on distinct banks and every WMMA pointer stays 32-byte
-// aligned), and the bytes of one staged corpus tile.
+// Per corpus type (f32 only): query element type, depth columns per
+// pipeline step (KC), shared-memory row pitch in elements (KP, padded by 16
+// bytes so rows start on distinct banks), and the bytes of one staged
+// corpus tile.
 template <typename CT> struct Cfg;
-template <> struct Cfg<__nv_bfloat16> {
-  using Q = __nv_bfloat16;
-  static constexpr int KC = 64, KP = 72;
-  static constexpr int C_STAGE = LANE * KP * 2;
-  static constexpr int CB = 0;  // no conversion buffer
-};
-template <> struct Cfg<int8_t> {
-  using Q = __nv_bfloat16;
-  static constexpr int KC = 64, KP = 72;
-  static constexpr int C_STAGE = LANE * KC;   // raw int8 rows
-  static constexpr int CB = LANE * KP * 2;    // the tile widened to bf16
-};
 template <> struct Cfg<float> {
   using Q = float;
   static constexpr int KC = 32, KP = 36;
   static constexpr int C_STAGE = LANE * KP * 4;
-  static constexpr int CB = 0;
 };
 
 template <typename CT, int BM> struct Layout {
@@ -113,9 +87,8 @@ template <typename CT, int BM> struct Layout {
   static constexpr int Q_STAGE = BM * C::KP * (int)sizeof(typename C::Q);
   static constexpr int STAGE = Q_STAGE + C::C_STAGE;
   static constexpr int S_OFF = STAGES * STAGE;
-  static constexpr int CB_OFF = S_OFF + BM * SP * 4;
-  static constexpr int BYTES = CB_OFF + C::CB;
-  static_assert(Q_STAGE % 128 == 0 && STAGE % 128 == 0 && CB_OFF % 128 == 0, "alignment");
+  static constexpr int BYTES = S_OFF + BM * SP * 4;
+  static_assert(Q_STAGE % 128 == 0 && STAGE % 128 == 0, "alignment");
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
@@ -147,11 +120,10 @@ __device__ __forceinline__ void issue_step(unsigned char* stage,
   }
   unsigned char* cs = stage + Layout<CT, BM>::Q_STAGE;
   constexpr int CV = 16 / (int)sizeof(CT);  // corpus elements per 16 bytes
-  constexpr int PITCH = sizeof(CT) == 1 ? C::KC : C::KP;
   for (int i = threadIdx.x; i < LANE * (C::KC / CV); i += THREADS) {
     const int r = i / (C::KC / CV);
     const int c = (i % (C::KC / CV)) * CV;
-    cp_async16(reinterpret_cast<CT*>(cs) + r * PITCH + c, corpus + (row0 + r) * d + k0 + c,
+    cp_async16(reinterpret_cast<CT*>(cs) + r * C::KP + c, corpus + (row0 + r) * d + k0 + c,
                true);
   }
 }
@@ -176,16 +148,6 @@ __device__ __forceinline__ void merge_top2(float& r1, float& r2, int& i1, int& i
   i2 = w2 ? j2a : j2b;
 }
 
-__device__ __forceinline__ void widen_int8x16(__nv_bfloat16* dst, const int8_t* src) {
-  __align__(16) int8_t v[16];
-  *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src);
-  __align__(16) __nv_bfloat16 w[16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e) w[e] = __float2bfloat16(static_cast<float>(v[e]));
-  reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(w)[0];
-  reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(w)[1];
-}
-
 // grid: x = query tile (BM rows of q), y = split (a contiguous range of
 // corpus blocks). T > 0: K1, a running per-lane top-T per split; T == 0:
 // K2, every block's per-lane top-2 written out; T == 0 and GROUP: K5, each
@@ -200,19 +162,13 @@ lane_topk_kernel(const typename Cfg<CT>::Q* __restrict__ q, const CT* __restrict
   constexpr bool ACC = T > 0;
   using C = Cfg<CT>;
   using L = Layout<CT, BM>;
-  constexpr bool MMA = sizeof(CT) != 4;
   constexpr int HB = BM / GROUPS;  // query rows per thread in the selection
-  // WMMA m16n16k16 (bf16 and int8: K5, BM = 32): each of the 8 warps
-  // scores 16 corpus rows for the MF query row tiles
-  constexpr int FM = 16, FN = 16;
-  constexpr int MF = BM / FM;
   extern __shared__ __align__(128) unsigned char smem[];
   float* ss = reinterpret_cast<float*>(smem + L::S_OFF);
 
   const int tid = threadIdx.x;
   const int lane = tid % LANE;
   const int group = tid / LANE;
-  const int warp = tid / 32;
   const int b0 = blockIdx.x * BM;
   const int split = blockIdx.y;
   const int blk_lo = split * blocks_per_split;
@@ -255,16 +211,9 @@ lane_topk_kernel(const typename Cfg<CT>::Q* __restrict__ q, const CT* __restrict
     }
   }
 
-  using namespace nvcuda;
-  wmma::fragment<wmma::accumulator, FM, FN, 16, float> acc[MMA ? MF : 1];
-  float facc[MMA ? 1 : HB];
-  if constexpr (MMA) {
+  float facc[HB];
 #pragma unroll
-    for (int m = 0; m < MF; ++m) wmma::fill_fragment(acc[m], 0.0f);
-  } else {
-#pragma unroll
-    for (int j = 0; j < HB; ++j) facc[j] = 0.0f;
-  }
+  for (int j = 0; j < HB; ++j) facc[j] = 0.0f;
 
   auto issue = [&](int it) {
     const int tile = it / k_steps;
@@ -284,66 +233,28 @@ lane_topk_kernel(const typename Cfg<CT>::Q* __restrict__ q, const CT* __restrict
     cp_async_commit();
 
     unsigned char* stage = smem + (it % STAGES) * L::STAGE;
-    if constexpr (MMA) {
-      const __nv_bfloat16* qs = reinterpret_cast<const __nv_bfloat16*>(stage);
-      const __nv_bfloat16* cs;
-      if constexpr (sizeof(CT) == 1) {
-        __nv_bfloat16* cb = reinterpret_cast<__nv_bfloat16*>(smem + L::CB_OFF);
-        const int8_t* raw = reinterpret_cast<const int8_t*>(stage + L::Q_STAGE);
-        for (int i = tid; i < LANE * (C::KC / 16); i += THREADS) {
-          const int r = i / (C::KC / 16);
-          const int c = (i % (C::KC / 16)) * 16;
-          widen_int8x16(cb + r * C::KP + c, raw + r * C::KC + c);
-        }
-        __syncthreads();
-        cs = cb;
-      } else {
-        cs = reinterpret_cast<const __nv_bfloat16*>(stage + L::Q_STAGE);
-      }
+    // thread (row = lane, query group) accumulates HB dot products
+    const float* qs = reinterpret_cast<const float*>(stage);
+    const float* cs = reinterpret_cast<const float*>(stage + L::Q_STAGE);
 #pragma unroll
-      for (int kk = 0; kk < C::KC; kk += 16) {
-        wmma::fragment<wmma::matrix_b, FM, FN, 16, __nv_bfloat16, wmma::col_major> bf;
-        wmma::load_matrix_sync(bf, cs + warp * FN * C::KP + kk, C::KP);
+    for (int kk = 0; kk < C::KC; kk += 4) {
+      const float4 c4 = *reinterpret_cast<const float4*>(cs + lane * C::KP + kk);
 #pragma unroll
-        for (int m = 0; m < MF; ++m) {
-          wmma::fragment<wmma::matrix_a, FM, FN, 16, __nv_bfloat16, wmma::row_major> af;
-          wmma::load_matrix_sync(af, qs + m * FM * C::KP + kk, C::KP);
-          wmma::mma_sync(acc[m], af, bf, acc[m]);
-        }
-      }
-    } else {
-      // thread (row = lane, query group) accumulates HB dot products
-      const float* qs = reinterpret_cast<const float*>(stage);
-      const float* cs = reinterpret_cast<const float*>(stage + L::Q_STAGE);
-#pragma unroll
-      for (int kk = 0; kk < C::KC; kk += 4) {
-        const float4 c4 = *reinterpret_cast<const float4*>(cs + lane * C::KP + kk);
-#pragma unroll
-        for (int j = 0; j < HB; ++j) {
-          const float4 q4 =
-              *reinterpret_cast<const float4*>(qs + (group * HB + j) * C::KP + kk);
-          facc[j] = fmaf(q4.x, c4.x, facc[j]);
-          facc[j] = fmaf(q4.y, c4.y, facc[j]);
-          facc[j] = fmaf(q4.z, c4.z, facc[j]);
-          facc[j] = fmaf(q4.w, c4.w, facc[j]);
-        }
+      for (int j = 0; j < HB; ++j) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qs + (group * HB + j) * C::KP + kk);
+        facc[j] = fmaf(q4.x, c4.x, facc[j]);
+        facc[j] = fmaf(q4.y, c4.y, facc[j]);
+        facc[j] = fmaf(q4.z, c4.z, facc[j]);
+        facc[j] = fmaf(q4.w, c4.w, facc[j]);
       }
     }
     if ((it + 1) % k_steps != 0) continue;
 
     // a 128-row tile is scored: raw dot products to the score tile
-    if constexpr (MMA) {
 #pragma unroll
-      for (int m = 0; m < MF; ++m) {
-        wmma::store_matrix_sync(ss + m * FM * SP + warp * FN, acc[m], SP, wmma::mem_row_major);
-        wmma::fill_fragment(acc[m], 0.0f);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < HB; ++j) {
-        ss[(group * HB + j) * SP + lane] = facc[j];
-        facc[j] = 0.0f;
-      }
+    for (int j = 0; j < HB; ++j) {
+      ss[(group * HB + j) * SP + lane] = facc[j];
+      facc[j] = 0.0f;
     }
     __syncthreads();
     // (the next tile's score store comes after at least one more barrier
@@ -454,34 +365,13 @@ int launch(const void* q, const void* corpus, const float* bias, const float* sc
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM, int T, bool GROUP>
-int dispatch(const void* q, const void* corpus, int dtype, const float* bias,
-             const float* scale, float alpha, int b_pad, int d, int blk_n, int n_blocks,
-             int blocks_per_split, int n_splits, float* out_s, int32_t* out_i, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float, BM, T, GROUP>(q, corpus, bias, scale, alpha, b_pad, d, blk_n,
-                                         n_blocks, blocks_per_split, n_splits, out_s, out_i, s);
-    case 1:
-      return launch<__nv_bfloat16, BM, T, GROUP>(q, corpus, bias, scale, alpha, b_pad, d,
-                                                 blk_n, n_blocks, blocks_per_split, n_splits,
-                                                 out_s, out_i, s);
-    case 2:
-      return launch<int8_t, BM, T, GROUP>(q, corpus, bias, scale, alpha, b_pad, d, blk_n,
-                                          n_blocks, blocks_per_split, n_splits, out_s, out_i, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K6: K5 with the scoring and the selection on different warps.
 // ---------------------------------------------------------------------------
 
 constexpr int PIPE_BM = 32;
-constexpr int PIPE_THREADS = 2 * THREADS;  // 8 MMA warps, then 8 selection warps
-constexpr int BAR_RING = 1;                // MMA warps only: the copy ring
+constexpr int PIPE_THREADS = 2 * THREADS;  // 8 scoring warps, then 8 selection warps
+constexpr int BAR_RING = 1;                // scoring warps only: the copy ring
 constexpr int BAR_FULL = 2;                // + parity: a score tile is written
 constexpr int BAR_EMPTY = 4;               // + parity: a score tile was read
 
@@ -492,24 +382,22 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// Shared memory: the copy ring, two score tiles, the int8 widening buffer,
-// then the running top-2 of every (query, lane): scores [2][BM][128], then
+// Shared memory: the copy ring, two score tiles, then the running top-2 of every (query, lane): scores [2][BM][128], then
 // indices [2][BM][128].
 template <typename CT> struct PipeLayout {
   using L = Layout<CT, PIPE_BM>;
   static constexpr int S_OFF = STAGES * L::STAGE;
   static constexpr int S_BYTES = PIPE_BM * SP * 4;
-  static constexpr int CB_OFF = S_OFF + 2 * S_BYTES;
-  static constexpr int R_OFF = CB_OFF + Cfg<CT>::CB;
+  static constexpr int R_OFF = S_OFF + 2 * S_BYTES;
   static constexpr int BYTES = R_OFF + 4 * PIPE_BM * LANE * 4;
-  static_assert(S_BYTES % 128 == 0 && CB_OFF % 128 == 0 && R_OFF % 128 == 0, "alignment");
+  static_assert(S_BYTES % 128 == 0 && R_OFF % 128 == 0, "alignment");
 };
 
 // grid: x = query tile (32 rows of q), y = group (gsz blocks, gsz divides
 // n_blocks). Tile t of the group is the t-th run of 128 corpus rows; the
-// MMA warps write its scores to score tile t & 1 and the selection warps
-// read it from there. Handoff: FULL[t & 1] (MMA arrive, selection sync)
-// says tile t is written; EMPTY[t & 1] (selection arrive, MMA sync) says it
+// scoring warps write its scores to score tile t & 1 and the selection warps
+// read it from there. Handoff: FULL[t & 1] (scoring arrive, selection sync)
+// says tile t is written; EMPTY[t & 1] (selection arrive, scoring sync) says it
 // was read, so tile t + 2 may overwrite it.
 template <typename CT>
 __global__ void __launch_bounds__(PIPE_THREADS, 1)
@@ -521,9 +409,7 @@ lane_topk_group_pipe_kernel(const typename Cfg<CT>::Q* __restrict__ q,
   using C = Cfg<CT>;
   using L = Layout<CT, BM>;
   using P = PipeLayout<CT>;
-  constexpr bool MMA = sizeof(CT) != 4;
   constexpr int HB = BM / GROUPS;  // query rows per thread (selection and f32 dot)
-  constexpr int FM = 16, FN = 16, MF = BM / FM;
   extern __shared__ __align__(128) unsigned char smem[];
 
   const int b0 = blockIdx.x * BM;
@@ -534,22 +420,14 @@ lane_topk_group_pipe_kernel(const typename Cfg<CT>::Q* __restrict__ q,
   const int tiles = gsz * rows_per_lane;
 
   if (threadIdx.x < THREADS) {
-    // ---- MMA warps: copy ring and scoring
+    // ---- scoring warps: copy ring and dot products
     const int tid = threadIdx.x;
     const int lane = tid % LANE;
     const int group = tid / LANE;
-    const int warp = tid / 32;
     const int steps = tiles * k_steps;
-    using namespace nvcuda;
-    wmma::fragment<wmma::accumulator, FM, FN, 16, float> acc[MMA ? MF : 1];
-    float facc[MMA ? 1 : HB];
-    if constexpr (MMA) {
+    float facc[HB];
 #pragma unroll
-      for (int m = 0; m < MF; ++m) wmma::fill_fragment(acc[m], 0.0f);
-    } else {
-#pragma unroll
-      for (int j = 0; j < HB; ++j) facc[j] = 0.0f;
-    }
+    for (int j = 0; j < HB; ++j) facc[j] = 0.0f;
     auto issue = [&](int it) {
       issue_step<CT, BM>(smem + (it % STAGES) * L::STAGE, q, corpus, b0, b_pad,
                          row_base + (long long)(it / k_steps) * LANE, (it % k_steps) * C::KC, d);
@@ -561,53 +439,24 @@ lane_topk_group_pipe_kernel(const typename Cfg<CT>::Q* __restrict__ q,
     }
     for (int it = 0; it < steps; ++it) {
       cp_async_wait<STAGES - 2>();
-      bar_sync(BAR_RING, THREADS);  // every MMA thread's copies landed; stage it-1 is free
+      bar_sync(BAR_RING, THREADS);  // every scoring thread's copies landed; stage it-1 is free
       if (it + STAGES - 1 < steps) issue(it + STAGES - 1);
       cp_async_commit();
 
       unsigned char* stage = smem + (it % STAGES) * L::STAGE;
-      if constexpr (MMA) {
-        const __nv_bfloat16* qs = reinterpret_cast<const __nv_bfloat16*>(stage);
-        const __nv_bfloat16* cs;
-        if constexpr (sizeof(CT) == 1) {
-          __nv_bfloat16* cb = reinterpret_cast<__nv_bfloat16*>(smem + P::CB_OFF);
-          const int8_t* raw = reinterpret_cast<const int8_t*>(stage + L::Q_STAGE);
-          for (int i = tid; i < LANE * (C::KC / 16); i += THREADS) {
-            const int r = i / (C::KC / 16);
-            const int c = (i % (C::KC / 16)) * 16;
-            widen_int8x16(cb + r * C::KP + c, raw + r * C::KC + c);
-          }
-          bar_sync(BAR_RING, THREADS);
-          cs = cb;
-        } else {
-          cs = reinterpret_cast<const __nv_bfloat16*>(stage + L::Q_STAGE);
-        }
+      const float* qs = reinterpret_cast<const float*>(stage);
+      const float* cs = reinterpret_cast<const float*>(stage + L::Q_STAGE);
 #pragma unroll
-        for (int kk = 0; kk < C::KC; kk += 16) {
-          wmma::fragment<wmma::matrix_b, FM, FN, 16, __nv_bfloat16, wmma::col_major> bf;
-          wmma::load_matrix_sync(bf, cs + warp * FN * C::KP + kk, C::KP);
+      for (int kk = 0; kk < C::KC; kk += 4) {
+        const float4 c4 = *reinterpret_cast<const float4*>(cs + lane * C::KP + kk);
 #pragma unroll
-          for (int m = 0; m < MF; ++m) {
-            wmma::fragment<wmma::matrix_a, FM, FN, 16, __nv_bfloat16, wmma::row_major> af;
-            wmma::load_matrix_sync(af, qs + m * FM * C::KP + kk, C::KP);
-            wmma::mma_sync(acc[m], af, bf, acc[m]);
-          }
-        }
-      } else {
-        const float* qs = reinterpret_cast<const float*>(stage);
-        const float* cs = reinterpret_cast<const float*>(stage + L::Q_STAGE);
-#pragma unroll
-        for (int kk = 0; kk < C::KC; kk += 4) {
-          const float4 c4 = *reinterpret_cast<const float4*>(cs + lane * C::KP + kk);
-#pragma unroll
-          for (int j = 0; j < HB; ++j) {
-            const float4 q4 =
-                *reinterpret_cast<const float4*>(qs + (group * HB + j) * C::KP + kk);
-            facc[j] = fmaf(q4.x, c4.x, facc[j]);
-            facc[j] = fmaf(q4.y, c4.y, facc[j]);
-            facc[j] = fmaf(q4.z, c4.z, facc[j]);
-            facc[j] = fmaf(q4.w, c4.w, facc[j]);
-          }
+        for (int j = 0; j < HB; ++j) {
+          const float4 q4 =
+              *reinterpret_cast<const float4*>(qs + (group * HB + j) * C::KP + kk);
+          facc[j] = fmaf(q4.x, c4.x, facc[j]);
+          facc[j] = fmaf(q4.y, c4.y, facc[j]);
+          facc[j] = fmaf(q4.z, c4.z, facc[j]);
+          facc[j] = fmaf(q4.w, c4.w, facc[j]);
         }
       }
       if ((it + 1) % k_steps != 0) continue;
@@ -616,18 +465,10 @@ lane_topk_group_pipe_kernel(const typename Cfg<CT>::Q* __restrict__ q,
       const int t = it / k_steps;
       float* ss = reinterpret_cast<float*>(smem + P::S_OFF + (t & 1) * P::S_BYTES);
       if (t >= 2) bar_sync(BAR_EMPTY + (t & 1), PIPE_THREADS);
-      if constexpr (MMA) {
 #pragma unroll
-        for (int m = 0; m < MF; ++m) {
-          wmma::store_matrix_sync(ss + m * FM * SP + warp * FN, acc[m], SP, wmma::mem_row_major);
-          wmma::fill_fragment(acc[m], 0.0f);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < HB; ++j) {
-          ss[(group * HB + j) * SP + lane] = facc[j];
-          facc[j] = 0.0f;
-        }
+      for (int j = 0; j < HB; ++j) {
+        ss[(group * HB + j) * SP + lane] = facc[j];
+        facc[j] = 0.0f;
       }
       __threadfence_block();  // the tile's stores before the handoff
       bar_arrive(BAR_FULL + (t & 1), PIPE_THREADS);
@@ -752,36 +593,24 @@ extern "C" int lane_topk_emit_f32(const void* q, const void* corpus, const float
                                      static_cast<cudaStream_t>(stream));
 }
 
-// 32 query rows per CTA, one CTA per (query tile, group of gsz blocks; the
-// last group may be shorter). scale may be null. out_s/out_i:
+// f32 corpora, 32 query rows per CTA, one CTA per (query tile, group of gsz
+// blocks; the last group may be shorter). scale may be null. out_s/out_i:
 // [b_pad, n_groups * 256]; group g's lane l top-1 at g*256 + l, top-2 at
 // g*256 + 128 + l.
-extern "C" int lane_topk_group(const void* q, const void* corpus, int dtype, const float* bias,
-                               const float* scale, float alpha, int b_pad, int d, int blk_n,
-                               int n_blocks, int gsz, float* out_s, int32_t* out_i,
-                               void* stream) {
+extern "C" int lane_topk_group_f32(const void* q, const void* corpus, const float* bias,
+                                   const float* scale, float alpha, int b_pad, int d, int blk_n,
+                                   int n_blocks, int gsz, float* out_s, int32_t* out_i,
+                                   void* stream) {
   if (gsz < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<32, 0, true>(q, corpus, dtype, bias, scale, alpha, b_pad, d, blk_n, n_blocks,
-                               gsz, (n_blocks + gsz - 1) / gsz, out_s, out_i, stream);
+  return launch<float, 32, 0, true>(q, corpus, bias, scale, alpha, b_pad, d, blk_n, n_blocks,
+                                    gsz, (n_blocks + gsz - 1) / gsz, out_s, out_i,
+                                    static_cast<cudaStream_t>(stream));
 }
 
-// K5's candidates for gsz dividing n_blocks, no row scale; dtype as above.
-extern "C" int lane_topk_group_pipe(const void* q, const void* corpus, int dtype,
-                                    const float* bias, float alpha, int b_pad, int d, int blk_n,
-                                    int n_blocks, int gsz, float* out_s, int32_t* out_i,
-                                    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_pipe<float>(q, corpus, bias, alpha, b_pad, d, blk_n, n_blocks, gsz, out_s,
-                                out_i, s);
-    case 1:
-      return launch_pipe<__nv_bfloat16>(q, corpus, bias, alpha, b_pad, d, blk_n, n_blocks, gsz,
-                                        out_s, out_i, s);
-    case 2:
-      return launch_pipe<int8_t>(q, corpus, bias, alpha, b_pad, d, blk_n, n_blocks, gsz, out_s,
-                                 out_i, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+// K5's candidates for gsz dividing n_blocks, no row scale; f32 corpora.
+extern "C" int lane_topk_group_pipe_f32(const void* q, const void* corpus, const float* bias,
+                                        float alpha, int b_pad, int d, int blk_n, int n_blocks,
+                                        int gsz, float* out_s, int32_t* out_i, void* stream) {
+  return launch_pipe<float>(q, corpus, bias, alpha, b_pad, d, blk_n, n_blocks, gsz, out_s, out_i,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -42,11 +42,14 @@ _SIGNATURES = {
     # lane_scan_acc.cu, lane_scan_emit.cu (K1, K2: bf16 and int8 corpora)
     "lane_topk_acc": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "lane_topk_emit": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # lane_topk.cu (K1, K2 for f32 corpora; K5, K6)
+    # lane_scan_group.cu (K5, K6: bf16 and int8 corpora)
+    "lane_topk_group": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "lane_topk_group_pipe": [_P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # lane_topk.cu (K1, K2, K5, K6 for f32 corpora)
     "lane_topk_acc_f32": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "lane_topk_emit_f32": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "lane_topk_group": [_P, _P, _I, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
-    "lane_topk_group_pipe": [_P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
+    "lane_topk_group_f32": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
+    "lane_topk_group_pipe_f32": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
     # ivf_probe.cu (K3, K4)
     "ivf_bucket_probe": [_P, _P, _I, _L, _L, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                          _P],

@@ -44,7 +44,9 @@ ADC_SMEM_BYTES = 16 * 1024
 # sorting its own slice, so a bucket may be read once by each.
 RUN_MAX = 4096
 
-LAUNCHES = {"ivf_bucket_probe": 0, "ivf_adc": 0}
+# Launches by kernel, counted where the wrapper launches it; every K3 / K4
+# launch runs the grouping pre-pass (`ivf_group_pairs`) in the same C call.
+LAUNCHES = {"ivf_bucket_probe": 0, "ivf_adc": 0, "ivf_group_pairs": 0}
 
 _VEC_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -97,6 +99,7 @@ def _group_pairs_cuda(probes, c: int):
             *probes.shape, c, ids.data_ptr(), order.data_ptr(),
             torch.cuda.current_stream(probes.device).cuda_stream)
     _kernels.check("ivf_group_pairs", err)
+    LAUNCHES["ivf_group_pairs"] += 1
     return ids, order
 
 
@@ -167,6 +170,7 @@ def _bucket_probe_cuda(q, probes, bucket_vectors, bucket_bias, bucket_scale):
         )
     _kernels.check("ivf_bucket_probe", err)
     LAUNCHES["ivf_bucket_probe"] += len(_slices(n))
+    LAUNCHES["ivf_group_pairs"] += len(_slices(n))
     return out
 
 
@@ -268,6 +272,7 @@ def _adc_cuda(tabs, probes, bucket_codes, bucket_bias, packed: bool):
         )
     _kernels.check("ivf_adc", err)
     LAUNCHES["ivf_adc"] += len(_slices(n))
+    LAUNCHES["ivf_group_pairs"] += len(_slices(n))
     return out
 
 

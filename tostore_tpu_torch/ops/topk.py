@@ -15,14 +15,19 @@ and merge the candidates with torch.topk. Dispatched by
     same candidates.
   - `flat_topk_lane`: the same per-(chunk, lane) top-2 in plain PyTorch
     (chunked matmul + per-lane argmax). The JAX package runs it in XLA
-    outside any kernel.
+    outside any kernel, and `auto` takes it for B > 32; the port's `auto`
+    takes it there for CPU tensors and, on the card, for f32 corpora
+    above 256 queries (`_auto_route`): elsewhere on the card K2 serves the
+    same contract with finer buckets, faster.
   - `flat_topk_xla` (exact): chunked matmul + torch.topk, always exact.
 
 Outside the dispatch, as in the JAX package: `_fused_group_emit` folds
 the per-block top-2 into a per-(group of gsz blocks, lane) top-2 (kernel
-K5) and `pipe_topk` does the same with the scoring pipelined against the
-selection (kernel K6); their plain versions are `_fused_group_emit_plain`
-and `_pipe_topk_plain`.
+K5) and `pipe_topk` does the same with the selection of a tile overlapped
+with the products of the next (kernel K6). On a CUDA tensor bf16 and int8
+corpora take csrc/lane_scan_group.cu (TMA + wgmma, a group split by lane
+halves across CTAs), f32 corpora the FMA kernels of csrc/lane_topk.cu;
+their plain versions are `_fused_group_emit_plain` and `_pipe_topk_plain`.
 
 Exactness contract of the approximate paths: the true global top-k is
 recovered exactly unless more than 2 of the true top-k rows share one
@@ -62,6 +67,7 @@ EXACT_CHUNK = 65536
 MIN_FUSED_N = 64 * DEFAULT_BLK_N
 # The accumulating kernel (K1) serves query blocks up to this size.
 ACC_MAX_BLK_B = 32
+F32_FUSED_MAX_B = 256  # on a CUDA device, `auto` sends an f32 corpus to K2 up to here
 
 # Query rows per CTA of K1 and K2. bf16 and int8 corpora (csrc/lane_scan.cuh):
 # K1 serves the whole padded batch (8, 16, 24 or 32 queries) in one CTA, so
@@ -72,6 +78,13 @@ ACC_TILE_B = (8, 16, 24, 32)
 EMIT_TILE_B = 64
 ACC_TILE_B_F32 = (8, 16)
 EMIT_TILE_B_F32 = 32
+# K5 / K6 on bf16 and int8 corpora (csrc/lane_scan_group.cu): query rows per
+# CTA, the widest first; a CTA serves one lane half (64 of the 128 lanes) of
+# one group for one query tile. The f32 kernels take 32 queries and a whole
+# group per CTA.
+GROUP_TILE_B = (64, 32)
+# the share of the SMs that a grid of the wider tile must fill to be taken
+_GROUP_FILL = 0.75
 # CTAs per SM of a scan: the TMA ring of lane_scan.cuh fills an SM's shared
 # memory, so one persistent CTA per SM walks a contiguous range of blocks;
 # the f32 kernels fit two per SM.
@@ -81,7 +94,8 @@ _CTAS_PER_SM_F32 = 2
 # Launches of each hand-written kernel, counted where the wrapper launches
 # it; a run reads them to show which kernels its path went through.
 LAUNCHES = {"lane_topk_acc": 0, "lane_topk_emit": 0, "lane_topk_acc_f32": 0,
-            "lane_topk_emit_f32": 0, "lane_topk_group": 0, "lane_topk_group_pipe": 0}
+            "lane_topk_emit_f32": 0, "lane_topk_group": 0, "lane_topk_group_pipe": 0,
+            "lane_topk_group_f32": 0, "lane_topk_group_pipe_f32": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -535,48 +549,77 @@ def _group_outputs(corpus, b_pad, n_groups):
             torch.empty((b_pad, cw), dtype=torch.int32, device=corpus.device))
 
 
+def _group_grid_plan(b_pad: int, n_groups: int, sms: int):
+    """(query rows per CTA, query tiles) of K5 / K6 on bf16 and int8 corpora
+    on a card with `sms` SMs. The grid is n_groups x 2 lane halves x query
+    tiles CTAs, each walking its whole group, so the candidates do not
+    depend on the plan. The wider tile reads the corpus fewer times; it is
+    taken where its grid fills `_GROUP_FILL` of the SMs, else the narrower
+    one, whose grid is twice as large."""
+    for tile_b in GROUP_TILE_B:
+        q_tiles = -(-b_pad // tile_b)
+        if 2 * n_groups * q_tiles >= _GROUP_FILL * sms:
+            break
+    return tile_b, q_tiles
+
+
+def _group_cta(x: int, q_tiles: int):
+    """(group, lane half, query tile) of CTA x of K5 / K6's grid, as the
+    kernel decodes blockIdx.x: the CTAs of one group are adjacent, and
+    within a group those of one lane half, which read the same rows."""
+    return x // (2 * q_tiles), (x // q_tiles) % 2, x % q_tiles
+
+
 def _lane_topk_group_cuda(qp, corpus, bias, row_scale, alpha, blk_n, gsz):
-    """K5 on the card: [B_pad, n_groups*256] candidates; each CTA scans
-    whole groups, so they are the reference's."""
+    """K5 on the card: [B_pad, n_groups*256] candidates. A CTA scans a
+    whole group (f32) or one lane half of a whole group (bf16, int8) in
+    ascending block order, so they are the reference's."""
     _check_kernel_inputs(qp, corpus, bias, row_scale, blk_n)
     if gsz < 1:
         raise ValueError(f"gsz must be >= 1, got {gsz}")
-    b_pad, d = qp.shape
-    n_blocks = corpus.shape[0] // blk_n
-    out_s, out_i = _group_outputs(corpus, b_pad, -(-n_blocks // gsz))
-    lib = _kernels.library()
-    with torch.cuda.device(corpus.device):
-        err = lib.lane_topk_group(
-            qp.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
-            bias.data_ptr(), _scale_ptr(row_scale), float(alpha), b_pad, d, blk_n,
-            n_blocks, gsz,
-            out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(corpus.device).cuda_stream,
-        )
-    _kernels.check("lane_topk_group", err)
-    LAUNCHES["lane_topk_group"] += 1
-    return out_s, out_i
+    return _launch_group("lane_topk_group", qp, corpus, bias, row_scale, alpha, blk_n, gsz)
 
 
 def _lane_topk_group_pipe_cuda(qp, corpus, bias, alpha, blk_n, gsz):
-    """K6 on the card: K5's candidates for a gsz dividing n_blocks, with the
-    scoring of a tile overlapping the selection of the one before."""
+    """K6 on the card: K5's candidates, bit for bit, for a gsz dividing
+    n_blocks, with the selection of a tile overlapping the products of the
+    next."""
     _check_kernel_inputs(qp, corpus, bias, None, blk_n)
-    b_pad, d = qp.shape
     n_blocks = corpus.shape[0] // blk_n
     if gsz < 1 or n_blocks % gsz:
         raise ValueError(f"gsz must divide n_blocks = {n_blocks}, got {gsz}")
-    out_s, out_i = _group_outputs(corpus, b_pad, n_blocks // gsz)
+    return _launch_group("lane_topk_group_pipe", qp, corpus, bias, None, alpha, blk_n, gsz)
+
+
+def _launch_group(name, qp, corpus, bias, row_scale, alpha, blk_n, gsz):
+    """Launch K5 (`lane_topk_group`) or K6 (`lane_topk_group_pipe`; no row
+    scale) on checked inputs and count it."""
+    pipe = name == "lane_topk_group_pipe"
+    b_pad, d = qp.shape
+    n, n_blocks = corpus.shape[0], corpus.shape[0] // blk_n
+    n_groups = -(-n_blocks // gsz)
+    out_s, out_i = _group_outputs(corpus, b_pad, n_groups)
     lib = _kernels.library()
+    scale = () if pipe else (_scale_ptr(row_scale),)
     with torch.cuda.device(corpus.device):
-        err = lib.lane_topk_group_pipe(
-            qp.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], bias.data_ptr(),
-            float(alpha), b_pad, d, blk_n, n_blocks, gsz,
-            out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(corpus.device).cuda_stream,
-        )
-    _kernels.check("lane_topk_group_pipe", err)
-    LAUNCHES["lane_topk_group_pipe"] += 1
+        stream = torch.cuda.current_stream(corpus.device).cuda_stream
+        if corpus.dtype == torch.float32:
+            name += "_f32"
+            err = getattr(lib, name)(
+                qp.data_ptr(), corpus.data_ptr(), bias.data_ptr(), *scale, float(alpha),
+                b_pad, d, blk_n, n_blocks, gsz, out_s.data_ptr(), out_i.data_ptr(), stream)
+        else:
+            tile_b, q_tiles = _group_grid_plan(b_pad, n_groups, _sm_count(corpus.device))
+            # the kernel reads whole query tiles: pad the rows with zeros
+            q_rows = q_tiles * tile_b
+            if q_rows != b_pad:
+                qp = torch.nn.functional.pad(qp, (0, 0, 0, q_rows - b_pad))
+            err = getattr(lib, name)(
+                qp.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], bias.data_ptr(),
+                *scale, float(alpha), q_rows, b_pad, d, n, blk_n, n_blocks, gsz, tile_b,
+                out_s.data_ptr(), out_i.data_ptr(), stream)
+    _kernels.check(name, err)
+    LAUNCHES[name] += 1
     return out_s, out_i
 
 
@@ -607,8 +650,9 @@ def _fused_group_emit_plain(q, corpus, bias, *, k, alpha, blk_n, gsz=None, row_s
 
 def pipe_topk(q, corpus, bias, *, k, alpha=1.0, blk_n=2048, blk_b=256, gsz=None):
     """The pipelined grouped scan (K6): the candidates of
-    `_fused_group_emit` at a gsz >= 2 dividing n_blocks (default: the
-    largest such gsz keeping >= 16 groups), no row scale; then torch.topk.
+    `_fused_group_emit`, bit for bit, at a gsz >= 2 dividing n_blocks
+    (default: the largest such gsz keeping >= 16 groups), no row scale;
+    then torch.topk.
     f32 corpora score in true f32. (The TPU experiment scored f32 at the
     default matmul precision, which is not this module's exactness
     contract.) On a CPU tensor this is `_pipe_topk_plain`."""
@@ -632,7 +676,7 @@ def _pipe_topk_plain(q, corpus, bias, *, k, alpha=1.0, blk_n=2048, blk_b=256, gs
 
 
 # --------------------------------------------------------------------------
-# Lane-candidate path in plain PyTorch (the auto path for B > 32)
+# Lane-candidate path in plain PyTorch (the auto path for B > 32 on the CPU)
 # --------------------------------------------------------------------------
 
 # score-chunk budget: CH ~ 8M elements / B, clamped
@@ -697,11 +741,36 @@ def flat_topk_lane(q, corpus, bias, *, k: int, alpha: float = 1.0,
     return _topk_pad(torch.cat(parts_s, 1), torch.cat(parts_i, 1), k)
 
 
+def _auto_route(b_pad: int, corpus_dtype, device_type: str) -> str:
+    """The approximate path `auto` takes for a padded batch of b_pad
+    queries: "fused" (`fused_flat_topk`: K1 up to 32 queries, K2 above) or
+    "lane" (`flat_topk_lane`, plain PyTorch). Up to ACC_MAX_BLK_B queries
+    K1 serves everywhere. Above, CPU tensors keep the reference's route,
+    the lane scan (its rule was fitted to a TPU, where XLA beat the
+    emitting kernel). On a CUDA device bf16 and int8 corpora go to K2,
+    whose (block, lane) buckets are finer than the lane scan's (chunk,
+    lane) ones: on an H100 it measured 4-9x faster than the lane scan at
+    B = 40..256. An f32 corpus takes the f32 FMA K2, which reads the corpus
+    once per 32 queries, so its time doubles with the batch while the lane
+    scan's stays flat: 1.5-2.5x faster at B = 40..128, a tie at B = 256, so
+    f32 goes to K2 up to F32_FUSED_MAX_B queries and to the lane scan above
+    (PERF.md section 6 has the times, B = 512 among them)."""
+    if b_pad <= ACC_MAX_BLK_B:
+        return "fused"
+    if device_type != "cuda":
+        return "lane"
+    if corpus_dtype == torch.float32 and b_pad > F32_FUSED_MAX_B:
+        return "lane"
+    return "fused"
+
+
 def flat_search(q, corpus, bias, *, k: int, alpha: float = 1.0,
                 mode: str = "auto", row_scale=None):
     """Dispatch:
       auto:  B <= 32  -> K1 (fused_flat_topk, running per-lane top-T);
-             B > 32   -> lane-candidate scan in plain PyTorch;
+             B > 32   -> K2 (fused_flat_topk) on a CUDA corpus (f32: up
+                         to 256 queries), else the lane-candidate scan in
+                         plain PyTorch (`_auto_route`);
              small N or huge k -> exact chunked path.
       'fused' forces fused_flat_topk (K1, or K2 for B > 32); 'exact' forces
       the chunked exact scan; 'fast' is served as 'auto' (module
@@ -713,6 +782,6 @@ def flat_search(q, corpus, bias, *, k: int, alpha: float = 1.0,
         return fused_flat_topk(q, corpus, bias, k=k, alpha=alpha, row_scale=row_scale)
     if mode == "exact" or not approx_ok or n < MIN_FUSED_N:
         return flat_topk_xla(q, corpus, bias, alpha, k, row_scale=row_scale)
-    if round_up(q.shape[0], 8) <= ACC_MAX_BLK_B:
+    if _auto_route(round_up(q.shape[0], 8), corpus.dtype, corpus.device.type) == "fused":
         return fused_flat_topk(q, corpus, bias, k=k, alpha=alpha, row_scale=row_scale)
     return flat_topk_lane(q, corpus, bias, k=k, alpha=alpha, row_scale=row_scale)

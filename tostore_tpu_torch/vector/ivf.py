@@ -25,6 +25,8 @@ mutation count that install checks (capture_build_state).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -385,6 +387,7 @@ class IVFVectorIndex:
         # maintenance (RCU capture/build/install); library use retrains inline
         self.defer_retrain = False
         self._mutations = 0  # staleness check for off-lock rebuilds
+        self._last_mut_t = 0.0  # quiescence gate for background maintenance
 
         self.centroids: torch.Tensor | None = None  # [C, Dp] f32
         # sliced layout: cluster c owns slices base[c]..base[c]+nsl[c]-1
@@ -524,34 +527,66 @@ class IVFVectorIndex:
             self._reencode_all()
         return True
 
-    # Dispatch constants of the cost model, kept from the JAX package so that
-    # both packages take the same path. They were FITTED ON A TPU (v5e,
-    # 500k x 768 bf16, C=1024, nprobe=16) and say nothing of this card;
-    # re-fitting them on the H100 is a later perf PR (ROADMAP).
+    # Dispatch constants of the cost model, in ms and us of a whole
+    # search_arrays call. For CPU tensors they are the JAX package's (fitted
+    # on a TPU v5e), so that both packages take the same path there.
     PROBE_BASE_MS = 1.7     # fixed dispatch + centroid top-k + rerank cost
+    PROBE_BASE_PQ_MS = 1.7  # the same for a PQ index (the reference has one base)
     PROBE_STEP_US = 2.2     # raw contiguous kernel, per (query, slice)
     PROBE_STEP_ADC4_US = 5.4   # 4-bit nibble ADC, per (query, slice)
     PROBE_STEP_ADC8_US = 18.0  # 8-bit K=256 ADC, per (query, slice)
+    FLAT_BASE_MS = 0.0      # fixed cost of a flat call (the reference models none)
     FLAT_GBPS = 330         # effective flat-scan rate incl. selection
     FLAT_PER_QUERY_US = 7.0
     FALLBACK_MIN_BYTES = 64 << 20  # model validity floor (~43k x 768 bf16)
+    # For CUDA devices: fitted to the host-clock ms of search_arrays(mode=
+    # "probe") against the flat scan `auto` takes (K1 up to 32 queries, K2
+    # above) at B = 1, 8, 32, 64, 128, 256, nprobe 16, on an NVIDIA H100
+    # 80GB HBM3 at 700 W (`chip_smoke.py` phase 6c): 1M x 768 bf16 raw (C =
+    # 1024), and 500k x 768 with PQ M = 192 / K = 16 packed and M = 96 / K =
+    # 256. A call is host-bound there: the probe's base is its dispatch of
+    # some 40 small ops (more for PQ: tables, re-rank), the flat scan's a
+    # fixed 0.41 ms beside the corpus read at ~3 TB/s; K2 adds ~6.5 us a
+    # query above 32. The fit is to the run with the quietest host of five;
+    # all five agree where the model decides by more than the host clock's
+    # spread (~40% between runs): the flat scan on both PQ indexes at every
+    # batch, the probe on the raw index from B = 128. On the raw index up to
+    # B = 64 the routes are 0.05-0.4 ms apart and the faster one changed from
+    # run to run; the model takes the probe there. PERF.md section 6 has the
+    # runs' tables.
+    CUDA_COST = {
+        "PROBE_BASE_MS": 0.77, "PROBE_BASE_PQ_MS": 1.40, "PROBE_STEP_US": 0.40,
+        "PROBE_STEP_ADC4_US": 0.45, "PROBE_STEP_ADC8_US": 0.85, "FLAT_BASE_MS": 0.41,
+        "FLAT_GBPS": 2980, "FLAT_PER_QUERY_US": 6.5,
+    }
+
+    @classmethod
+    def _route_costs(cls, nbytes: int, b: int, nprobe: int, kind: str, device_type: str):
+        """(flat ms, probe ms) of the cost model for a corpus of nbytes on a
+        device type: probe ~ base + step x B x nprobe, flat ~ FLAT_BASE_MS
+        + corpus bytes / FLAT_GBPS + FLAT_PER_QUERY_US x B. kind: "raw",
+        "adc4" (nibble-packed PQ) or "adc8"."""
+        def cost(name):
+            return cls.CUDA_COST[name] if device_type == "cuda" else getattr(cls, name)
+
+        flat_ms = (cost("FLAT_BASE_MS") + nbytes / (cost("FLAT_GBPS") * 1e6)
+                   + cost("FLAT_PER_QUERY_US") * b / 1e3)
+        base = cost("PROBE_BASE_MS" if kind == "raw" else "PROBE_BASE_PQ_MS")
+        step = cost({"raw": "PROBE_STEP_US", "adc4": "PROBE_STEP_ADC4_US",
+                     "adc8": "PROBE_STEP_ADC8_US"}[kind])
+        return flat_ms, base + step * b * nprobe / 1e3
 
     def _flat_beats_probe(self, b: int, nprobe: int) -> bool:
-        """Estimated-cost dispatch between the probe and the flat scan:
-        probe ~ PROBE_BASE_MS + step x B x nprobe, flat ~ corpus bytes /
-        FLAT_GBPS + FLAT_PER_QUERY_US x B."""
+        """Estimated-cost dispatch between the probe and the flat scan
+        (`_route_costs`), with the constants of the corpus's device type."""
         c = self.corpus
         if c.capacity == 0:
             return False
         nbytes = c.capacity * c.d_pad * c.vectors.element_size()
         if nbytes < self.FALLBACK_MIN_BYTES:
             return False
-        flat_ms = nbytes / (self.FLAT_GBPS * 1e6) + self.FLAT_PER_QUERY_US * b / 1e3
-        if self.pq is not None:
-            step = self.PROBE_STEP_ADC4_US if self._pack_nibbles else self.PROBE_STEP_ADC8_US
-        else:
-            step = self.PROBE_STEP_US
-        probe_ms = self.PROBE_BASE_MS + step * b * nprobe / 1e3
+        kind = "raw" if self.pq is None else ("adc4" if self._pack_nibbles else "adc8")
+        flat_ms, probe_ms = self._route_costs(nbytes, b, nprobe, kind, c.vectors.device.type)
         return flat_ms < probe_ms
 
     def _resolve_pq_k(self) -> int:
@@ -576,6 +611,14 @@ class IVFVectorIndex:
 
     def _note_mutation(self):
         self._mutations += 1
+        self._last_mut_t = time.monotonic()
+
+    def quiescent_s(self) -> float:
+        """Seconds since the last corpus mutation: background maintenance
+        waits for a short quiet window, so that builds in the middle of a
+        bulk load do not churn (their install would fail the mutation
+        check anyway)."""
+        return time.monotonic() - self._last_mut_t
 
     def needs_retrain(self) -> bool:
         if not self.trained:
@@ -1020,6 +1063,13 @@ class IVFVectorIndex:
         self.corpus.compact()
         if self.trained:
             self._rebuild_buckets()
+
+    def maybe_compact(self, ratio_threshold: float = 0.10):
+        """Tombstone compaction trigger, the reference's 10% rule."""
+        if self.corpus.deleted_ratio >= ratio_threshold and self.corpus.deleted_count > 0:
+            self.compact()
+            return True
+        return False
 
     # --- search ---------------------------------------------------------------
 
