@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--profile]
 
 Needs one CUDA device, nvcc (the kernels in tostore_tpu_torch/csrc/ are
-built at first use) and this repository's tostore_tpu_torch package; it
+built at first use; g++ for the optional native helper) and this
+repository's tostore_tpu_torch package; it
 imports nothing of JAX or tostore_tpu. Phases:
 
   1. K1 (lane_topk_acc) and K2 (lane_topk_emit) against their plain PyTorch
@@ -112,12 +113,38 @@ imports nothing of JAX or tostore_tpu. Phases:
      mask >= 0.999; IVF recall@10 against exact-with-mask is printed (the
      JAX package sets no filtered-IVF floor).
 
+  9. The engine, through the facade only (tostore_tpu_torch.ToStoreTPU on
+     the default device). (a) A memory database with a flat bf16 l2 table
+     of 1,000,000 x 768 rows and `price` / `ts` fields, loaded through
+     batch_insert in chunks of 20,000: ingest rows/s; the first search
+     (which flushes the staged rows to the card); with the launch counters
+     zeroed, 32 vector_search calls (one query a call: K1 must launch once
+     per search; host-clock ms beside K1's kernel ms of phase 3); the same
+     searches from 8 threads at once (equal results, K1 once per search,
+     searches/s); a B = 256 search_arrays on the table's own index object
+     (must launch K2); top-10 agreement with mode="exact" >= 0.999 over
+     100 queries; a filtered search through the device mask whose every hit
+     satisfies the predicate on the host; a delete that never comes back.
+     (b) An IVF and an IVF-PQ (M = 192) table of 250,000 clustered rows, C
+     = 512, nprobe 16: run_vector_maintenance trains each off-lock (timed),
+     then vector_search(mode="probe") must launch K3 / K4 (`auto` takes the
+     flat scan at this depth, by its fitted cost model), recall@10 against
+     mode="exact" over the floors of phase 6. (c) Durability on a file
+     database in a temporary directory at 500,000 rows (a table snapshot is
+     one frame with a u32 length, and 1M rows of 768 f32 + 768 bf16 values
+     are 4.7 GB): ingest rows/s with the WAL on, flush() (checkpoint s and
+     bytes), 2,000 more rows and a delete that live only in the WAL, the
+     handle dropped without close(), reopen (s), first search (s): the same
+     searches must give the same pks. Last, whether the native helper
+     (tostore_tpu_torch/native, g++) or its Python form ran.
+
 Prints the card's name and power limit, the torch and CUDA versions, the
 build time, a JSON line of the kernels (each with its launches on its
 path, max_abs_err, ms, plain_ms, bound_ms / bound_by computed from this
 run's shapes, library_ms, null where no single PyTorch call computes the
-function, kernel_ms where the kernel alone was timed, and product_ms for
-the lane scans and K3; the six kernels, then their f32 forms and the IVF
+function, kernel_ms where the kernel alone was timed, product_ms for
+the lane scans and K3, and engine_launches for K1-K4: their launches in
+phase 9; the six kernels, then their f32 forms and the IVF
 grouping pre-pass), and last `{"ok": true, ...}`. Any failure raises
 and exits non-zero.
 """
@@ -1504,6 +1531,331 @@ def phase_hybrid(flat, f32_idx, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, 
     return launches
 
 
+# Phase 9: the engine, through the public facade (tostore_tpu_torch.ToStoreTPU).
+ENGINE_ROWS = 1_000_000      # the flat table: the main path's full width and depth
+ENGINE_CHUNK = 20_000        # rows per batch_insert
+ENGINE_IVF_ROWS = 250_000    # the IVF and IVF-PQ tables (clustered rows)
+ENGINE_IVF_CLUSTERS = 512    # C scaled with the depth (1,024 at 1M rows); nprobe stays 16
+ENGINE_DUR_ROWS = 500_000    # the file database of the durability leg (see phase_engine)
+ENGINE_TAIL_ROWS = 2_000     # written after the checkpoint: they live only in the WAL
+ENGINE_QUERIES = 32          # single-query searches per leg
+ENGINE_THREADS = 8
+ENGINE_EXACT_QUERIES = 100   # single-query searches held against mode="exact"
+ENGINE_OPEN_KW = {}          # the default device; a CPU rehearsal sets {"device": "cpu"}
+
+
+def _engine_schema(P, name, index_type="flat", **index):
+    return P.TableSchema(
+        name=name,
+        fields=(
+            P.FieldSchema("price", P.DataType.double),
+            P.FieldSchema("ts", P.DataType.integer),
+            P.FieldSchema("emb", P.DataType.vector, vector_config=P.VectorFieldConfig(
+                dimensions=DIMS, precision="bfloat16")),
+        ),
+        indexes=(P.IndexSchema(fields=("emb",), type="vector",
+                               vector_config=P.VectorIndexConfig(
+                                   index_type=index_type, metric="l2", **index)),),
+    )
+
+
+def _engine_ingest(db, table, rows, price, ts_null, first_pk=1):
+    """batch_insert in chunks of ENGINE_CHUNK records (pk = first_pk + row);
+    `rows` yields float32 arrays. Returns (rows, seconds of the batch_insert
+    calls alone: the record dicts are built outside the clock)."""
+    pk, spent = first_pk, 0.0
+    for x in rows:
+        for a in range(0, len(x), ENGINE_CHUNK):
+            recs = [{"id": pk + i, "price": float(price[pk + i - 1]),
+                     "ts": None if ts_null[pk + i - 1] else T0_MS + pk + i, "emb": v}
+                    for i, v in enumerate(x[a : a + ENGINE_CHUNK])]
+            t0 = time.perf_counter()
+            res = db.batch_insert(table, recs)
+            spent += time.perf_counter() - t0
+            if not res.is_success:
+                raise AssertionError(f"batch_insert into {table}: {res}")
+            pk += len(recs)
+    return pk - first_pk, spent
+
+
+def _normal_chunks(seed, n, chunk=125_000):
+    rng = np.random.default_rng(seed)
+    for off in range(0, n, chunk):
+        yield rng.standard_normal((min(chunk, n - off), DIMS), dtype=np.float32)
+
+
+def _zero_counters(T, IP):
+    for table in (T.LAUNCHES, IP.LAUNCHES):
+        for key in table:
+            table[key] = 0
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _pks(hits):
+    return [h.primary_key for h in hits]
+
+
+def _dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def _hard_drop(db):
+    """A crash as the engine sees it: the WAL and the background jobs are
+    cut, nothing is checkpointed, the handle is dropped without close()."""
+    db.engine._wal.close()
+    db.engine._crontab.stop()
+
+
+def phase_engine(T, IP, smi, k1_kernel_ms):
+    """Phase 9: a database opened through the facade on the default device
+    inserts, searches (flat, filtered, IVF, IVF-PQ), deletes, checkpoints,
+    is dropped without close() and reopens. Launch counters are zeroed
+    before each leg and read after it. Returns the engine's launches of
+    K1-K4."""
+    import shutil
+    import tempfile
+    import threading
+
+    import tostore_tpu_torch as P
+    from tostore_tpu_torch import native
+
+    tag = f"[{smi}]"
+    rng = np.random.default_rng(SEED + 9)
+    price = rng.random(ENGINE_ROWS + ENGINE_TAIL_ROWS + 1)
+    ts_null = (np.arange(ENGINE_ROWS + ENGINE_TAIL_ROWS + 1) % TS_NULL_EVERY) == 0
+    launches = {}
+
+    # --- 9a: the flat table at full width, in a memory database
+    db = P.ToStoreTPU.memory(schemas=[
+        _engine_schema(P, "docs"),
+        _engine_schema(P, "ivf", "ivf", num_clusters=ENGINE_IVF_CLUSTERS, nprobe=16),
+        _engine_schema(P, "pq", "ivf", num_clusters=ENGINE_IVF_CLUSTERS, nprobe=16,
+                       pq_subspaces=192),
+    ], **ENGINE_OPEN_KW)
+    n, spent = _engine_ingest(db, "docs", _normal_chunks(SEED + 10, ENGINE_ROWS), price, ts_null)
+    print(f"phase9 ingest (memory database, flat bf16 l2, {n} x {DIMS}, batch_insert of "
+          f"{ENGINE_CHUNK}): {n / spent:.0f} rows/s ({spent:.2f} s) {tag}", flush=True)
+    queries = np.random.default_rng(SEED + 11).standard_normal(
+        (max(ENGINE_QUERIES, ENGINE_EXACT_QUERIES, 256), DIMS), dtype=np.float32)
+    t0 = time.perf_counter()
+    db.vector_search("docs", "emb", queries[0], top_k=K)
+    print(f"phase9 first search (flushes the staged vectors to the card): "
+          f"{time.perf_counter() - t0:.2f} s {tag}", flush=True)
+    idx = db.engine._table("docs").vector_index_for("emb")
+    if idx.corpus.vectors.device.type != torch.device(ENGINE_OPEN_KW.get("device", "cuda")).type:
+        raise AssertionError(f"the engine's corpus lies on {idx.corpus.vectors.device}")
+
+    _zero_counters(T, IP)
+    serial, ms = [], []
+    for q in queries[:ENGINE_QUERIES]:
+        t0 = time.perf_counter()
+        serial.append(db.vector_search("docs", "emb", q, top_k=K))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches["lane_topk_acc"] = T.LAUNCHES["lane_topk_acc"]
+    direct = []  # the table's index alone: what the engine's layers add is the difference
+    for q in queries[:ENGINE_QUERIES]:
+        t0 = time.perf_counter()
+        idx.search(q, top_k=K)
+        direct.append((time.perf_counter() - t0) * 1e3)
+    print(f"phase9 vector_search B=1: host clock median {np.median(ms):.4f} ms (min "
+          f"{min(ms):.4f}; the index's own search() {np.median(direct):.4f}) beside K1's "
+          f"kernel {k1_kernel_ms:.4f} ms (phase 3); K1 launches "
+          f"{launches['lane_topk_acc']} in {ENGINE_QUERIES} searches {tag}", flush=True)
+    if launches["lane_topk_acc"] != ENGINE_QUERIES:
+        raise AssertionError(f"K1 launched {launches['lane_topk_acc']} times in "
+                             f"{ENGINE_QUERIES} vector_search calls")
+    if any(len(h) != K or not all(np.isfinite(r.distance) for r in h) for h in serial):
+        raise AssertionError("vector_search: bad result shape or values")
+
+    _zero_counters(T, IP)
+    got = [None] * ENGINE_THREADS
+    errors = []
+
+    def worker(i):
+        try:
+            got[i] = [db.vector_search("docs", "emb", q, top_k=K)
+                      for q in queries[:ENGINE_QUERIES]]
+        except Exception as exc:  # surfaced below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(ENGINE_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    for i in range(ENGINE_THREADS):
+        if [_pks(h) for h in got[i]] != [_pks(h) for h in serial]:
+            raise AssertionError(f"thread {i}: results differ from the serial searches")
+    n_thr = ENGINE_THREADS * ENGINE_QUERIES
+    print(f"phase9 vector_search from {ENGINE_THREADS} threads: {n_thr / wall:.0f} searches/s "
+          f"({n_thr} in {wall:.3f} s; one thread: {1e3 / np.median(ms):.0f}/s), results equal; "
+          f"K1 launches {T.LAUNCHES['lane_topk_acc']} {tag}", flush=True)
+    if T.LAUNCHES["lane_topk_acc"] != n_thr:
+        raise AssertionError(f"K1 launched {T.LAUNCHES['lane_topk_acc']} times in {n_thr} "
+                             "searches from threads")
+
+    _zero_counters(T, IP)
+    dist, slots, pks = idx.search_arrays(queries[:256], K)
+    launches["lane_topk_emit"] = T.LAUNCHES["lane_topk_emit"]
+    if launches["lane_topk_emit"] <= 0 or dist.shape != (256, K) or (slots < 0).any():
+        raise AssertionError(f"B=256 search_arrays on the table's index: K2 launches "
+                             f"{launches['lane_topk_emit']}, shape {dist.shape}")
+    if [int(p) for p in pks[0]] != _pks(serial[0]):
+        raise AssertionError("B=256 search_arrays row 0 differs from vector_search")
+
+    agree = 0
+    for q in queries[:ENGINE_EXACT_QUERIES]:
+        agree += len(set(_pks(db.vector_search("docs", "emb", q, top_k=K)))
+                     & set(_pks(db.vector_search("docs", "emb", q, top_k=K, mode="exact"))))
+    rate = agree / (K * ENGINE_EXACT_QUERIES)
+    print(f"phase9 vector_search top-{K} agreement with mode='exact': {rate} over "
+          f"{ENGINE_EXACT_QUERIES} queries; K2 launches on the table's index at B=256: "
+          f"{launches['lane_topk_emit']}", flush=True)
+    if rate < AGREEMENT_MIN:
+        raise AssertionError(f"engine top-{K} agreement {rate} < {AGREEMENT_MIN}")
+
+    cond = P.QueryCondition().where("price", "<", 0.25).where("ts", "between", TS_RANGE)
+    lo, hi = TS_RANGE
+    checked, ms = 0, []
+    for q in queries[:8]:
+        t0 = time.perf_counter()
+        hits = db.vector_search("docs", "emb", q, top_k=K, condition=cond)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for h in hits:
+            pk = h.primary_key
+            if not (price[pk - 1] < 0.25 and not ts_null[pk - 1] and lo <= T0_MS + pk <= hi):
+                raise AssertionError(f"filtered search returned pk {pk} against its predicate")
+            checked += 1
+    if checked == 0:
+        raise AssertionError("filtered search returned nothing")
+    fc = idx.corpus.filter_columns
+    if not {"price", "ts"} <= set(fc.names()):
+        raise AssertionError(f"the filter columns are not on the device: {fc.names()}")
+    victim = serial[0][0].primary_key
+    if not db.delete_by_pk("docs", victim).is_success:
+        raise AssertionError("delete_by_pk failed")
+    if victim in _pks(db.vector_search("docs", "emb", queries[0], top_k=K)):
+        raise AssertionError(f"deleted pk {victim} came back")
+    print(f"phase9 filtered search (device mask, price < 0.25 and ts between): host clock "
+          f"median {np.median(ms):.4f} ms; {checked} hits all satisfy the predicate; deleted "
+          f"pk {victim} never came back {tag}", flush=True)
+    db.drop_table("docs")
+    del idx, serial, got
+    torch.cuda.empty_cache()
+
+    # --- 9b: IVF and IVF-PQ tables, trained off-lock by maintenance
+    chunks, crng = _clustered_rows(SEED + 12, ENGINE_IVF_ROWS)
+    ivf_q = chunks[0][crng.integers(0, len(chunks[0]), ENGINE_QUERIES)] \
+        + crng.standard_normal((ENGINE_QUERIES, DIMS), dtype=np.float32) * 0.1
+    for name, kernel, floor in (("ivf", "ivf_bucket_probe", RECALL_MIN["raw"]),
+                                ("pq", "ivf_adc", RECALL_MIN["pq192"])):
+        n, spent = _engine_ingest(db, name, chunks, price, ts_null)
+        db.vector_search(name, "emb", ivf_q[0], top_k=K)  # flushes; the index is untrained
+        vi = db.engine._table(name).vector_index_for("emb")
+        _sync()
+        t0 = time.perf_counter()
+        jobs = db.engine.run_vector_maintenance()
+        _sync()
+        train_s = time.perf_counter() - t0
+        if not vi.trained or (name == "pq" and vi.pq is None):
+            raise AssertionError(f"{name}: maintenance did not train the index")
+        _zero_counters(T, IP)
+        hit, ms = 0, []
+        for q in ivf_q:
+            t0 = time.perf_counter()
+            got_pks = _pks(db.vector_search(name, "emb", q, top_k=K, mode="probe"))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            hit += len(set(got_pks)
+                       & set(_pks(db.vector_search(name, "emb", q, top_k=K, mode="exact"))))
+        launches[kernel] = IP.LAUNCHES[kernel]
+        recall = hit / (K * ENGINE_QUERIES)
+        auto = "the flat scan" if vi._flat_beats_probe(1, vi.nprobe) else "the probe"
+        print(f"phase9 {name} table: {n} x {DIMS} bf16 clustered rows, C={ENGINE_IVF_CLUSTERS}, "
+              f"nprobe 16 (depth cut from 1M); ingest {n / spent:.0f} rows/s; maintenance "
+              f"trained it off-lock in {train_s:.2f} s ({jobs} job); vector_search(mode='probe') "
+              f"{np.median(ms):.4f} ms host clock, {kernel} launches {launches[kernel]}, "
+              f"recall@{K} vs exact {recall} (`auto` takes {auto} at this depth) {tag}",
+              flush=True)
+        if launches[kernel] < ENGINE_QUERIES:
+            raise AssertionError(f"{name}: {kernel} launched {launches[kernel]} times in "
+                                 f"{ENGINE_QUERIES} probe searches")
+        if recall < floor:
+            raise AssertionError(f"{name}: recall@{K} {recall} < {floor}")
+        db.drop_table(name)
+        del vi
+        torch.cuda.empty_cache()
+    db.close()
+
+    # --- 9c: durability on a file database. A table snapshot is one frame
+    # whose length is a u32 (engine/storage.py write_atomic_framed): a row
+    # costs 768 x 4 bytes in the column store and 768 x 2 in the corpus, so
+    # 1,000,000 rows (4.7 GB) do not fit one frame and this leg runs at
+    # ENGINE_DUR_ROWS, the depth that does.
+    path = tempfile.mkdtemp(prefix="tostore_smoke_")
+    try:
+        db = P.ToStoreTPU.open(path, schemas=[_engine_schema(P, "docs")], **ENGINE_OPEN_KW)
+        n, spent = _engine_ingest(db, "docs", _normal_chunks(SEED + 10, ENGINE_DUR_ROWS),
+                                  price, ts_null)
+        print(f"phase9 ingest (file database, WAL on, {n} x {DIMS}): {n / spent:.0f} rows/s "
+              f"({spent:.2f} s) {tag}", flush=True)
+        q = queries[1]
+        before = _pks(db.vector_search("docs", "emb", q, top_k=K))
+        t0 = time.perf_counter()
+        db.flush()
+        ckpt_s = time.perf_counter() - t0
+        ckpt_bytes = _dir_bytes(path)
+        tail = np.random.default_rng(SEED + 13).standard_normal(
+            (ENGINE_TAIL_ROWS, DIMS), dtype=np.float32)
+        _engine_ingest(db, "docs", [tail], price, ts_null, first_pk=ENGINE_ROWS + 1)
+        db.delete_by_pk("docs", before[1])
+        tail_q = tail[77] + np.float32(0.01)
+        want_tail = _pks(db.vector_search("docs", "emb", tail_q, top_k=3))
+        want = _pks(db.vector_search("docs", "emb", q, top_k=K))
+        if want_tail[0] != ENGINE_ROWS + 78 or before[1] in want or want[0] != before[0]:
+            raise AssertionError(f"before the drop: {want_tail}, {want} after {before}")
+        _hard_drop(db)
+        del db
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        db = P.ToStoreTPU.open(path, **ENGINE_OPEN_KW)
+        open_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_q = _pks(db.vector_search("docs", "emb", q, top_k=K))
+        first_s = time.perf_counter() - t0
+        got_tail = _pks(db.vector_search("docs", "emb", tail_q, top_k=3))
+        recovered = db.engine._counters["recovered_wal_entries"]
+        rows = db.count("docs")
+        print(f"phase9 durability ({ENGINE_DUR_ROWS} rows; 1M rows overflow the u32 snapshot "
+              f"frame): checkpoint {ckpt_s:.2f} s, {ckpt_bytes} bytes on disk; dropped "
+              f"without close(); reopen {open_s:.2f} s, first search after reopen "
+              f"{first_s:.2f} s, {recovered} WAL entries replayed, {rows} rows; the same "
+              f"searches give the same pks {tag}", flush=True)
+        if got_q != want or got_tail != want_tail:
+            raise AssertionError(f"after reopen: {got_q} vs {want}; {got_tail} vs {want_tail}")
+        if rows != ENGINE_DUR_ROWS + ENGINE_TAIL_ROWS - 1 or recovered <= 0:
+            raise AssertionError(f"after reopen: {rows} rows, {recovered} WAL entries replayed")
+        vi = db.engine._table("docs").vector_index_for("emb")
+        if vi.corpus.vectors.dtype != torch.bfloat16:
+            raise AssertionError("the reopened corpus is not bf16")
+        db.close()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    print(f"phase9 native helper: {native.which()} "
+          "(codec and key-encoding loops: the C++ helper, or its Python form)", flush=True)
+    print(f"phase9 engine launches: {launches}", flush=True)
+    return launches
+
+
 def _print_ptxas(log):
     """One line per compiled kernel from nvcc -Xptxas -v: its (mangled,
     shortened) name, registers and spill bytes. Returns {name: spill
@@ -1578,6 +1930,9 @@ def main() -> int:
     errs.update(group_errs)
     hybrid_launches = phase_hybrid(flat, f32_idx, deleted, ivf_idxs, ivf_deleted, ivf_queries,
                                    T, IP)
+    del flat, f32_idx, ivf_idxs
+    torch.cuda.empty_cache()
+    engine_launches = phase_engine(T, IP, smi, times[1, "kernel"])
 
     f32_src = "tostore_tpu_torch/csrc/lane_topk.cu"
     scan_src = "tostore_tpu_torch/csrc/lane_scan.cuh"
@@ -1590,6 +1945,8 @@ def main() -> int:
                "launches": launched, "max_abs_err": errs[name], "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
                "library_ms": None}  # no single PyTorch call computes these functions
+        if name in engine_launches:  # phase 9: through ToStoreTPU.vector_search (K2: the
+            row["engine_launches"] = engine_launches[name]  # engine table's index object)
         if product_ms is not None:  # the score product alone (cuBLAS), not the same function
             row["product_ms"] = product_ms
         if kernel_ms is not None:  # the kernel alone, device time (ms: the wrapper's call)

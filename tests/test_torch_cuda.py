@@ -612,3 +612,102 @@ def test_ivf_index_card_matches_cpu(cuda, precision, pq):
     qsq = np.sum(q * q, axis=1)[:, None]
     assert_topk_match(qsq - d_gpu.astype(np.float64) ** 2, s_gpu,
                       qsq - d_cpu.astype(np.float64) ** 2, s_cpu, TOL[precision])
+
+
+# --- the engine on the card ---------------------------------------------------
+
+
+def _engine_schema(P, name, prec, **index):
+    return P.TableSchema(
+        name=name,
+        fields=(P.FieldSchema("price", P.DataType.double),
+                P.FieldSchema("emb", P.DataType.vector, vector_config=P.VectorFieldConfig(
+                    dimensions=256, precision=prec))),
+        indexes=(P.IndexSchema(fields=("emb",), type="vector",
+                               vector_config=P.VectorIndexConfig(metric="l2", **index)),),
+    )
+
+
+@pytest.mark.parametrize("prec", ["bfloat16", "int8", "float32"])
+def test_engine_on_card_matches_engine_on_cpu(cuda, monkeypatch, tmp_path, prec):
+    """The same rows through `ToStoreTPU` on the default device (the card)
+    and with device="cpu": equal pks, through the flat table (K1), the IVF
+    table after maintenance trained it (K3) and a filtered search; from 8
+    threads every search launches K1 once; a checkpoint, a WAL tail, a hard
+    drop and a reopen on the card keep the answers."""
+    import threading
+
+    import tostore_tpu_torch as P
+
+    monkeypatch.setattr(ttopk, "MIN_FUSED_N", 4096)  # 8,192 slots take the lane kernels
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((9000, 256)).astype(np.float32)
+    recs = [{"price": float(i % 100), "emb": x[i]} for i in range(len(x))]
+    schemas = [_engine_schema(P, "flat", prec, index_type="flat"),
+               _engine_schema(P, "ivf", prec, index_type="ivf", num_clusters=16, nprobe=16)]
+    dbs = {"card": P.ToStoreTPU.open(str(tmp_path / "card"), schemas=schemas),
+           "cpu": P.ToStoreTPU.open(str(tmp_path / "cpu"), schemas=schemas, device="cpu")}
+    cond = P.QueryCondition().where("price", "<", 25.0)
+    got = {}
+    for name, db in dbs.items():
+        assert db.engine.config.device == ("cuda" if name == "card" else "cpu")
+        for t in ("flat", "ivf"):
+            assert db.batch_insert(t, recs[:8000]).is_success
+            db.vector_search(t, "emb", x[0], top_k=1)
+        assert db.engine.run_vector_maintenance() == 1
+        vi = db.engine._table("ivf").vector_indexes["emb"]
+        assert vi.trained and vi.corpus.vectors.device.type == ("cuda" if name == "card"
+                                                                 else "cpu")
+        for key in ttopk.LAUNCHES:
+            ttopk.LAUNCHES[key] = 0
+        for key in tivf.LAUNCHES:
+            tivf.LAUNCHES[key] = 0
+        got[name] = [
+            [h.primary_key for h in db.vector_search("flat", "emb", x[5] + 0.05, top_k=10)],
+            [h.primary_key for h in db.vector_search("ivf", "emb", x[6] + 0.05, top_k=10,
+                                                     mode="probe")],
+            [h.primary_key for h in db.vector_search("flat", "emb", x[7] + 0.05, top_k=10,
+                                                     condition=cond)],
+        ]
+        if name == "card":
+            k1 = _kernel_name("lane_topk_acc", prec)
+            assert ttopk.LAUNCHES[k1] == 2 and tivf.LAUNCHES["ivf_bucket_probe"] == 1
+    # k-means runs on each device in its own arithmetic: the IVF tables are
+    # held to their own exact scan, the flat ones to each other
+    assert got["card"][0] == got["cpu"][0] and got["card"][2] == got["cpu"][2]
+    for name, db in dbs.items():
+        exact = [h.primary_key for h in db.vector_search("ivf", "emb", x[6] + 0.05, top_k=10,
+                                                         mode="exact")]
+        assert len(set(got[name][1]) & set(exact)) >= 9, (name, got[name][1], exact)
+    assert all(dbs["cpu"].get_by_pk("flat", pk)["price"] < 25.0 for pk in got["card"][2])
+
+    db = dbs["card"]
+    k1 = _kernel_name("lane_topk_acc", prec)
+    ttopk.LAUNCHES[k1] = 0
+    out = [None] * 8
+
+    def worker(i):
+        out[i] = [[h.primary_key for h in db.vector_search("flat", "emb", x[j] + 0.05, top_k=10)]
+                  for j in range(20)]
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert ttopk.LAUNCHES[k1] == 160 and all(o == out[0] for o in out)
+
+    db.flush()
+    assert db.batch_insert("flat", recs[8000:]).is_success  # lives only in the WAL
+    want = [h.primary_key for h in db.vector_search("flat", "emb", x[8500] + 0.05, top_k=5)]
+    assert want[0] == 8501
+    db.engine._wal.close()
+    db.engine._crontab.stop()
+    del db
+    db = P.ToStoreTPU.open(str(tmp_path / "card"))
+    assert db.engine._counters["recovered_wal_entries"] > 0
+    assert [h.primary_key for h in db.vector_search("flat", "emb", x[8500] + 0.05, top_k=5)] == want
+    assert db.engine._table("flat").vector_indexes["emb"].corpus.vectors.is_cuda
+    assert db.status.memory()["hbm_limit"] > 0
+    db.close()
+    dbs["cpu"].close()

@@ -1,12 +1,14 @@
 """State conversion between the JAX package's indexes and the port's.
 
 A `FlatVectorIndex.state_dict()` or `IVFVectorIndex.state_dict()` of the
-JAX package is a dict of numpy arrays: bf16 vectors are ml_dtypes arrays, read here bit for bit through
-`.view(np.int16)`. The port writes the same format, so a snapshot made by
-either package opens in the other. bf16 vectors are written as ml_dtypes
-arrays where ml_dtypes imports (the JAX package's own type), else as
-float32, which widens bf16 exactly and which the JAX package's
-`from_state_dict` casts back to bf16. An IVF snapshot carries the
+JAX package is a dict of numpy arrays: bf16 vectors are ml_dtypes arrays,
+read here bit for bit through `.view(np.int16)`. The port writes the same
+format, so a snapshot made by either package opens in the other. The port
+holds bf16 vectors on the host as `BF16Array` (utils/bf16.py: the same
+bits in a uint16 array, no ml_dtypes), which the codec writes with the
+same wire tag as the ml_dtypes type, 2 bytes a value; handed to the JAX
+package in memory it widens exactly to float32 (`__array__`), which that
+package's `from_state_dict` casts back to bf16. An IVF snapshot carries the
 corpus, the centroids and the PQ codebooks; the bucket layout is rebuilt
 from them on load, in either package.
 """
@@ -16,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils.bf16 import BF16Array, is_bf16
 from .vector.corpus import INT8_SCALE, DeviceCorpus
 from .vector.flat import FlatVectorIndex
 from .vector.ivf import IVFVectorIndex
@@ -25,21 +28,17 @@ from .vector.pq import PQCodebook
 def _rows_to_tensor(vecs: np.ndarray) -> torch.Tensor:
     """A host copy of snapshot rows as a tensor of the same bits (bf16 rows
     through int16). Copies, since snapshot arrays may be read-only."""
-    if vecs.dtype.name == "bfloat16":
+    if is_bf16(vecs):
         return torch.tensor(vecs.view(np.int16)).view(torch.bfloat16)
     if vecs.dtype == np.int8:
         return torch.tensor(vecs)
     return torch.tensor(vecs.astype(np.float32, copy=False))
 
 
-def _vectors_to_numpy(t: torch.Tensor) -> np.ndarray:
+def _vectors_to_numpy(t: torch.Tensor):
     if t.dtype != torch.bfloat16:
         return t.cpu().numpy()
-    try:
-        import ml_dtypes
-    except ImportError:  # the card's environment: widen exactly to f32
-        return t.float().cpu().numpy()
-    return t.view(torch.int16).cpu().numpy().view(ml_dtypes.bfloat16)
+    return BF16Array(t.view(torch.int16).cpu().numpy())
 
 
 def corpus_from_reference(d: dict, device) -> DeviceCorpus:
@@ -50,7 +49,9 @@ def corpus_from_reference(d: dict, device) -> DeviceCorpus:
     if not m:
         return c
     c._ensure_capacity(m)
-    vecs = np.asarray(d["vectors"])
+    vecs = d["vectors"]
+    if not is_bf16(vecs):  # a BF16Array stays as its bits
+        vecs = np.asarray(vecs)
     # staged in chunks; f32 snapshots of bf16 corpora cast on the device
     chunk = max(1, (64 << 20) // max(1, vecs.shape[1] * vecs.dtype.itemsize))
     for off in range(0, m, chunk):

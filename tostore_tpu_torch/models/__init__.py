@@ -1,5 +1,3 @@
-"""Result models of the port."""
-
-from .results import VectorSearchResult
-
-__all__ = ["VectorSearchResult"]
+"""Data models of the port: schemas, configs, results, expressions
+(counterpart of `tostore_tpu/models/`, host Python carried as it is).
+"""

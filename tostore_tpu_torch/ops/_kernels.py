@@ -151,6 +151,17 @@ def library() -> SimpleNamespace:
         return _lib
 
 
+_count_lock = threading.Lock()
+
+
+def count(launches: dict, name: str, n: int = 1):
+    """Add to a wrapper's launch counter. `d[k] += n` is a read and a
+    write: searches from several threads (the engine releases its lock
+    across a search) would lose counts without the lock."""
+    with _count_lock:
+        launches[name] += n
+
+
 def check(name: str, err: int):
     """Raise on a nonzero cudaError_t returned by a C entry point."""
     if err != 0:

@@ -99,7 +99,7 @@ def _group_pairs_cuda(probes, c: int):
             *probes.shape, c, ids.data_ptr(), order.data_ptr(),
             torch.cuda.current_stream(probes.device).cuda_stream)
     _kernels.check("ivf_group_pairs", err)
-    LAUNCHES["ivf_group_pairs"] += 1
+    _kernels.count(LAUNCHES, "ivf_group_pairs")
     return ids, order
 
 
@@ -169,8 +169,8 @@ def _bucket_probe_cuda(q, probes, bucket_vectors, bucket_bias, bucket_scale):
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _kernels.check("ivf_bucket_probe", err)
-    LAUNCHES["ivf_bucket_probe"] += len(_slices(n))
-    LAUNCHES["ivf_group_pairs"] += len(_slices(n))
+    _kernels.count(LAUNCHES, "ivf_bucket_probe", len(_slices(n)))
+    _kernels.count(LAUNCHES, "ivf_group_pairs", len(_slices(n)))
     return out
 
 
@@ -271,8 +271,8 @@ def _adc_cuda(tabs, probes, bucket_codes, bucket_bias, packed: bool):
             order.data_ptr(), out.data_ptr(), torch.cuda.current_stream(tabs.device).cuda_stream,
         )
     _kernels.check("ivf_adc", err)
-    LAUNCHES["ivf_adc"] += len(_slices(n))
-    LAUNCHES["ivf_group_pairs"] += len(_slices(n))
+    _kernels.count(LAUNCHES, "ivf_adc", len(_slices(n)))
+    _kernels.count(LAUNCHES, "ivf_group_pairs", len(_slices(n)))
     return out
 
 

@@ -328,7 +328,7 @@ def _lane_topk_acc_cuda(qp, corpus, bias, row_scale, alpha, blk_n, t_cands, k):
                 _scale_ptr(row_scale), float(alpha), b_pad, d, n, blk_n, n_blocks, per,
                 splits, t_cands, out_s.data_ptr(), out_i.data_ptr(), stream)
     _kernels.check(name, err)
-    LAUNCHES[name] += 1
+    _kernels.count(LAUNCHES, name)
     return _merge_split_lists(out_s, out_i, t_cands, k)
 
 
@@ -363,7 +363,7 @@ def _lane_topk_emit_cuda(qp, corpus, bias, row_scale, alpha, blk_n):
                 _scale_ptr(row_scale), float(alpha), q_rows, b_pad, d, n, blk_n, n_blocks,
                 per, splits, out_s.data_ptr(), out_i.data_ptr(), stream)
     _kernels.check(name, err)
-    LAUNCHES[name] += 1
+    _kernels.count(LAUNCHES, name)
     return out_s, out_i
 
 
@@ -619,7 +619,7 @@ def _launch_group(name, qp, corpus, bias, row_scale, alpha, blk_n, gsz):
                 *scale, float(alpha), q_rows, b_pad, d, n, blk_n, n_blocks, gsz, tile_b,
                 out_s.data_ptr(), out_i.data_ptr(), stream)
     _kernels.check(name, err)
-    LAUNCHES[name] += 1
+    _kernels.count(LAUNCHES, name)
     return out_s, out_i
 
 

@@ -1,6 +1,5 @@
-"""Query layer of the port: condition trees (host code, carried from
-`tostore_tpu/query/`). Planning and the executor belong to the engine,
-which is not ported yet."""
+"""Query layer of the port: condition trees, planning, vectorized
+execution (host code, carried from `tostore_tpu/query/`)."""
 
 from .condition import QueryCondition
 
