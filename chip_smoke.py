@@ -130,21 +130,59 @@ imports nothing of JAX or tostore_tpu. Phases:
      then vector_search(mode="probe") must launch K3 / K4 (`auto` takes the
      flat scan at this depth, by its fitted cost model), recall@10 against
      mode="exact" over the floors of phase 6. (c) Durability on a file
-     database in a temporary directory at 500,000 rows (a table snapshot is
+     database in a temporary directory at 250,000 rows (a table snapshot is
      one frame with a u32 length, and 1M rows of 768 f32 + 768 bf16 values
-     are 4.7 GB): ingest rows/s with the WAL on, flush() (checkpoint s and
+     are 4.7 GB; 500,000 fit, and phase 10c checkpoints two tables of
+     250,000): ingest rows/s with the WAL on, flush() (checkpoint s and
      bytes), 2,000 more rows and a delete that live only in the WAL, the
      handle dropped without close(), reopen (s), first search (s): the same
      searches must give the same pks. Last, whether the native helper
      (tostore_tpu_torch/native, g++) or its Python form ran.
+
+ 10. The sharded path (tostore_tpu_torch/parallel/) at full width, on
+     meshes whose 4 cells all live on cuda:0: (1, 4) and, for the query
+     axis, (2, 2). The times of this phase are "4 cells on one card": they
+     show what the sharded path costs over the single-device one, not how
+     it scales. (a) ShardedFlatIndex(768, mesh, "l2", "bfloat16") with
+     phase 2's 1,000,000 rows (4 stripes of 251,904, or 2 of 501,760 in
+     two copies), 1% deleted: search_arrays at B = 1, 8, 256 against phase
+     2's single-device index on the same queries (top-10 agreement >=
+     0.999, shared pks' distances within the bf16 tolerance, no deleted
+     pk); K1 / K2 launches must equal cells x calls; then K1 / K2 against
+     their plain versions on every cell's own stripe, bias and queries
+     (phase 3's tolerance); host-clock ms per call beside the
+     single-device call, and the stripe scans' kernel time. (d) NCCL at world size 1 through parallel.mesh.init_distributed,
+     a mesh built after it, and (a)'s B = 8 search through that mesh's
+     collectives: equal results; the group is destroyed after. (b)
+     ShardedIVFIndex raw (C = 1,024, nprobe 16) on phase 6's clustered
+     rows over (1, 4) and residual PQ (M = 192, packed) on their first
+     500,000 over (2, 2): the contiguous stripes must be the active route,
+     K3 / K4 launches = cells x calls, recall@10 against mode="exact" over
+     the floors of phase 6, K3 / K4 against their plain versions on every
+     cell's own stripe, bias and probes (phase 6's tolerances, every score
+     of every probed bucket), build s, probe ms; a search after deletes
+     refreshes the stale bias; a slot mask hides its rows. (c) The engine:
+     ToStoreTPU.memory(device="cuda:0", mesh_shape=(4,)) with a flat table
+     of 1,000,000 rows (sharded_flat: K1 = 4 x searches, agreement with
+     mode="exact", a filtered search whose hits all satisfy the predicate)
+     and an IVF-PQ table of 250,000 clustered rows (sharded_ivf: trained
+     inline on its first 20,000 rows, then run_vector_maintenance installs
+     the 4x-growth retrain; K4 = 4 x searches; recall), K1 and K4 against
+     their plain versions on each cell's tensors of these tables; then a
+     file database of 250,000 rows a table (9c's depth, two tables) that
+     checkpoints under (4,) and reopens under () and (2, 2): both return
+     the same pks (two restores of one snapshot), and the live index's
+     nearest rows. (e) dryrun_multichip(4) of __graft_entry_torch__.py on
+     its default device, the card: K1 (f32) and K4 once per cell.
 
 Prints the card's name and power limit, the torch and CUDA versions, the
 build time, a JSON line of the kernels (each with its launches on its
 path, max_abs_err, ms, plain_ms, bound_ms / bound_by computed from this
 run's shapes, library_ms, null where no single PyTorch call computes the
 function, kernel_ms where the kernel alone was timed, product_ms for
-the lane scans and K3, and engine_launches for K1-K4: their launches in
-phase 9; the six kernels, then their f32 forms and the IVF
+the lane scans and K3, and for K1-K4 engine_launches, their launches in
+phase 9, and sharded_launches, those of phase 10; the six kernels, then
+their f32 forms and the IVF
 grouping pre-pass), and last `{"ok": true, ...}`. Any failure raises
 and exits non-zero.
 """
@@ -1536,7 +1574,7 @@ ENGINE_ROWS = 1_000_000      # the flat table: the main path's full width and de
 ENGINE_CHUNK = 20_000        # rows per batch_insert
 ENGINE_IVF_ROWS = 250_000    # the IVF and IVF-PQ tables (clustered rows)
 ENGINE_IVF_CLUSTERS = 512    # C scaled with the depth (1,024 at 1M rows); nprobe stays 16
-ENGINE_DUR_ROWS = 500_000    # the file database of the durability leg (see phase_engine)
+ENGINE_DUR_ROWS = 250_000    # the file database of the durability leg (see phase_engine)
 ENGINE_TAIL_ROWS = 2_000     # written after the checkpoint: they live only in the WAL
 ENGINE_QUERIES = 32          # single-query searches per leg
 ENGINE_THREADS = 8
@@ -1800,7 +1838,9 @@ def phase_engine(T, IP, smi, k1_kernel_ms):
     # whose length is a u32 (engine/storage.py write_atomic_framed): a row
     # costs 768 x 4 bytes in the column store and 768 x 2 in the corpus, so
     # 1,000,000 rows (4.7 GB) do not fit one frame and this leg runs at
-    # ENGINE_DUR_ROWS, the depth that does.
+    # ENGINE_DUR_ROWS: 500,000 rows fit, and the depth was halved again
+    # when phase 10 (whose durability leg checkpoints two tables of this
+    # depth, the same 2.3 GB) came to share the script's time.
     path = tempfile.mkdtemp(prefix="tostore_smoke_")
     try:
         db = P.ToStoreTPU.open(path, schemas=[_engine_schema(P, "docs")], **ENGINE_OPEN_KW)
@@ -1836,7 +1876,7 @@ def phase_engine(T, IP, smi, k1_kernel_ms):
         recovered = db.engine._counters["recovered_wal_entries"]
         rows = db.count("docs")
         print(f"phase9 durability ({ENGINE_DUR_ROWS} rows; 1M rows overflow the u32 snapshot "
-              f"frame): checkpoint {ckpt_s:.2f} s, {ckpt_bytes} bytes on disk; dropped "
+              f"frame, 500k fit): checkpoint {ckpt_s:.2f} s, {ckpt_bytes} bytes on disk; dropped "
               f"without close(); reopen {open_s:.2f} s, first search after reopen "
               f"{first_s:.2f} s, {recovered} WAL entries replayed, {rows} rows; the same "
               f"searches give the same pks {tag}", flush=True)
@@ -1854,6 +1894,565 @@ def phase_engine(T, IP, smi, k1_kernel_ms):
           "(codec and key-encoding loops: the C++ helper, or its Python form)", flush=True)
     print(f"phase9 engine launches: {launches}", flush=True)
     return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 10: the sharded path (parallel/) at full width, 4 cells on one card
+# --------------------------------------------------------------------------
+
+SHARD_CELL = "cuda:0"        # every cell of phase 10's meshes; a CPU rehearsal sets "cpu"
+SHARD_FLAT_B = (1, 8, 256)
+SHARD_IVF_B = (8, 64)
+SHARD_REPS = 7               # host-clock repeats per timed call
+SHARD_ENGINE_ROWS = ENGINE_ROWS          # the engine's flat table: phase 9a's depth
+SHARD_ENGINE_IVF_ROWS = ENGINE_IVF_ROWS  # the engine's IVF-PQ table: phase 9b's depth
+SHARD_SEED_ROWS = 20_000     # rows the IVF-PQ table trains on inline, before the 4x growth
+SHARD_DUR_ROWS = 250_000     # the file database: phase 9c's depth, two tables
+SHARD_ENGINE_QUERIES = 32
+
+
+def _host_ms(fn, reps=None):
+    """Median host-clock ms of fn(), the device drained before and after."""
+    fn()
+    _sync()
+    times = []
+    for _ in range(reps or SHARD_REPS):
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _meshes():
+    from tostore_tpu_torch.parallel import make_mesh
+
+    return {"1x4": make_mesh(4, dp=1, devices=[SHARD_CELL] * 4),
+            "2x2": make_mesh(4, dp=2, devices=[SHARD_CELL] * 4)}
+
+
+def _want_launches(counter, want, what):
+    got = {k: counter[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want} (cells x calls)")
+    return got
+
+
+def _stripe_flat_vs_plain(idx, queries, T, IP, errs, label):
+    """K1 / K2 against their plain versions on every cell's own tensors: the
+    cell's stripe, the bias search_arrays builds for it, and its dp slice of
+    the padded queries, through `flat_search` as `sharded_flat_topk` calls
+    it (a stripe is no multiple of 4,096 rows, so K2 takes 2,048-row blocks
+    here, and the grid plan is another than at 1M rows). Scores within the
+    corpus type's tolerance, as phases 1 and 3; the kernel must launch once
+    per cell. Updates errs, returns {kernel: max |score diff|}."""
+    from tostore_tpu_torch.ops import distance as D
+
+    mesh, alpha, out = idx.mesh, D.metric_alpha(idx.metric), {}
+    l2 = idx.metric == "l2"
+    for b, q in queries.items():
+        qx, _, _ = idx._prep_queries(q)
+        bl = qx.shape[0] // mesh.shape["dp"]
+        _zero_counters(T, IP)
+        name = None
+        for dpi, s, dev in mesh.owned:
+            qb = qx[dpi * bl:(dpi + 1) * bl].to(dev)
+            c = idx.vectors.part(dpi, s)
+            bias = D.make_bias(idx.metric, idx.sq_norms.part(dpi, s) if l2 else None,
+                               idx.valid.part(dpi, s))
+            scale = idx.scales.part(dpi, s) if idx.scales is not None else None
+            ks, ki = T.flat_search(qb, c, bias, k=K, alpha=alpha, row_scale=scale)
+            blk_n, _, _, emit = T._acc_plan(qb, c, K, None)
+            plain = T._fused_block_emit_plain if emit else T._fused_flat_topk_plain
+            ps, pi = plain(qb, c, bias, k=K, alpha=alpha, blk_n=blk_n, row_scale=scale)
+            _sync()
+            name = ("lane_topk_emit" if emit else "lane_topk_acc") + (
+                "_f32" if c.dtype == torch.float32 else "")
+            err = _check_topk(ks, ki, ps, pi, TOL[c.dtype])
+            out[name] = max(out.get(name, 0.0), err)
+            errs[name] = max(errs[name], err)
+        _want_launches(T.LAUNCHES, {name: len(mesh.owned)}, f"{label} B={b} kernel vs plain")
+    rows = next(iter(idx.vectors.parts.values())).shape[0]
+    print(f"{label} kernels vs plain on each of {len(mesh.owned)} cells' own stripe ({rows} "
+          f"rows), bias and queries, B = {list(queries)}: max_abs_err {out}", flush=True)
+    return out
+
+
+def _cell_view(idx, dpi, s, dev):
+    """One cell of a ShardedIVFIndex under the attribute names of the
+    single-device index, as `_probe_args` reads them: the tensors that cell's
+    probe body hands K3 / K4."""
+    from types import SimpleNamespace
+
+    def part(striped):
+        return None if striped is None else striped.part(dpi, s)
+
+    return SimpleNamespace(
+        corpus=SimpleNamespace(d_pad=idx.d_pad), device=dev, centroids=idx.centroids.on(dev),
+        _slice_cluster_dev=idx._slice_cluster_dev.on(dev), slice_bias=idx.slice_bias.on(dev),
+        nprobe=min(idx.nprobe, idx.centroids_exp.shape[0]),
+        centroids_exp=idx.centroids_exp.on(dev), bucket_bias=part(idx.bucket_bias),
+        bucket_vectors=part(idx.bucket_vectors), bucket_scales=part(idx.bucket_scales),
+        bucket_codes=part(idx.bucket_codes),
+        pq=None if idx.pq is None else SimpleNamespace(codebooks=idx._codebooks().on(dev)))
+
+
+def _stripe_ivf_vs_plain(idx, queries, T, IP, errs, label):
+    """K3 (raw) or K4 (PQ) against its plain version on every cell's own
+    contiguous stripe, cached bias, and the probes of its dp slice of the
+    queries, at phase 6b's tolerances (every score of every probed bucket
+    is compared, so a dropped tail cannot pass); the grouping pre-pass
+    against its plain version on the same probes. The kernel must launch
+    once per cell. Updates errs, returns (kernel, max |score diff|)."""
+    mesh = idx.mesh
+    if idx._bias_stale:
+        raise AssertionError(f"{label}: the cached bucket bias is stale")
+    worst, name = 0.0, None
+    for b, q in queries.items():
+        q = np.atleast_2d(q)
+        bl = -(-q.shape[0] // mesh.shape["dp"])
+        _zero_counters(T, IP)
+        for dpi, s, dev in mesh.owned:
+            qs = q[dpi * bl:(dpi + 1) * bl]
+            if not len(qs):  # a batch padded up to dp: that cell scans a zero query
+                qs = np.zeros((1, q.shape[1]), np.float32)
+            view = _cell_view(idx, dpi, s, dev)
+            a = _probe_args(view, qs, IP)
+            got, want, lim = a["kernel"](), a["plain"](), a["lim"]()
+            _sync()
+            name = a["name"]
+            err = _check_scores(f"{label} {name} cell ({dpi}, {s}) B={b}", got, want, lim)
+            worst = max(worst, err)
+            errs[name] = max(errs[name], err)
+            pre = _check_grouping(IP, a["probe"], view.bucket_bias.shape[0])
+            errs["ivf_group_pairs"] = max(errs["ivf_group_pairs"], pre)
+        _want_launches(IP.LAUNCHES, {name: len(mesh.owned)}, f"{label} B={b} kernel vs plain")
+    contig = idx.bucket_codes if idx.pq is not None else idx.bucket_vectors
+    shape = tuple(next(iter(contig.parts.values())).shape)
+    print(f"{label} {name} vs plain on each of {len(mesh.owned)} cells' own stripe {shape}, "
+          f"bias and probes, B = {list(queries)}: max_abs_err {worst}", flush=True)
+    return name, worst
+
+
+def phase_sharded_flat(flat, deleted, T, IP, errs, tag):
+    """Phase 10a: ShardedFlatIndex over 4 stripes of phase 2's rows, (1, 4)
+    and (2, 2), against phase 2's single-device index on the same queries."""
+    from tostore_tpu_torch.parallel import ShardedFlatIndex
+
+    meshes = _meshes()
+    idxs = {name: ShardedFlatIndex(DIMS, m, "l2", "bfloat16") for name, m in meshes.items()}
+    rng = np.random.default_rng(SEED + 1)  # phase 2's rows again
+    t0 = time.perf_counter()
+    chunk = 125_000  # as build_indexes draws them
+    for off in range(0, N_ROWS, chunk):
+        x = rng.standard_normal((chunk, DIMS), dtype=np.float32)
+        for idx in idxs.values():
+            idx.upsert(list(range(off, off + chunk)), x)
+    for idx in idxs.values():
+        idx.delete(sorted(deleted))
+    _sync()
+    one = idxs["1x4"]
+    print(f"phase10a built 2 sharded flat indexes of {N_ROWS} x {DIMS} bf16: (1, 4) with 4 "
+          f"stripes of {one._rows_per_shard()} rows, (2, 2) with 2 stripes of "
+          f"{idxs['2x2']._rows_per_shard()} in two copies, capacity {one.capacity}, in "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    if len(one) != len(flat) or one.capacity % (4 * 2048):
+        raise AssertionError(f"sharded index holds {len(one)} rows, capacity {one.capacity}")
+
+    qrng = np.random.default_rng(SEED + 20)
+    queries = {b: qrng.standard_normal((b, DIMS), dtype=np.float32) for b in SHARD_FLAT_B}
+    single = {b: flat.search_arrays(q, K) for b, q in queries.items()}
+    launches = {}
+    for name, idx in idxs.items():
+        _zero_counters(T, IP)
+        got = {b: idx.search_arrays(q, K) for b, q in queries.items()}
+        _sync()
+        calls = [(torch.bfloat16, b // idx.mesh.shape["dp"] or 1, "auto") for b in SHARD_FLAT_B]
+        want = {k: 4 * v for k, v in _flat_launches(T, calls).items()}
+        launches[name] = _want_launches(T.LAUNCHES, want, f"phase10a {name}")
+        agree = total = same_rows = 0
+        dist_err = 0.0
+        for b, (dist, pks) in got.items():
+            sdist, _, spks = single[b]
+            if dist.shape != (b, K) or not np.isfinite(dist).all():
+                raise AssertionError(f"phase10a {name} B={b}: bad result shape or values")
+            if any(p in deleted for p in pks.ravel()):
+                raise AssertionError(f"phase10a {name} B={b}: a deleted pk came back")
+            for row in range(b):
+                agree += len(set(pks[row].tolist()) & set(spks[row].tolist()))
+                same_rows += pks[row].tolist() == spks[row].tolist()
+                total += K
+                dist_err = max(dist_err, _check_shared_dists(
+                    "l2", queries[b][row], pks[row], dist[row], spks[row], sdist[row]))
+        print(f"phase10a {name}: top-{K} against the single-device index {agree / total} over "
+              f"{total // K} queries ({same_rows} rows in the same order), max |score diff| of "
+              f"shared pks {dist_err}; launches {launches[name]}", flush=True)
+        if agree / total < AGREEMENT_MIN:
+            raise AssertionError(f"phase10a {name}: agreement {agree / total}")
+        _stripe_flat_vs_plain(idx, queries, T, IP, errs, f"phase10a {name}")
+    times = {}
+    for b, q in queries.items():
+        times[b, "single"] = _host_ms(lambda: flat.search_arrays(q, K))
+        for name, idx in idxs.items():
+            times[b, name] = _host_ms(lambda: idx.search_arrays(q, K))
+        fn = lambda: one.search_arrays(q, K)  # noqa: E731
+        times[b, "kernels"] = _kernel_device_ms(fn) if SHARD_CELL != "cpu" else float("nan")
+        print(f"phase10a search_arrays B={b} host clock ms, 4 cells on one card: single-device "
+              f"{times[b, 'single']:.4f}, (1, 4) {times[b, '1x4']:.4f}, (2, 2) "
+              f"{times[b, '2x2']:.4f}; the 4 stripe scans' kernels together "
+              f"{times[b, 'kernels']:.4f} ms of device ({times[b, 'kernels'] / 4:.4f} a stripe "
+              f"of {one._rows_per_shard()} rows) {tag}", flush=True)
+    del idxs["2x2"]
+    return one, queries, launches, times
+
+
+def _load_sharded_ivf(mesh, chunks, n, deleted, fresh, **kw):
+    """A ShardedIVFIndex loaded untrained, trained once (timed), then 1%
+    deleted and N_FRESH rows appended to the trained layout."""
+    from tostore_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+
+    idx = ShardedIVFIndex(DIMS, mesh, "l2", "bfloat16", num_clusters=IVF_CLUSTERS, nprobe=16, **kw)
+    floor, idx.min_train_size = idx.min_train_size, 1 << 62  # one build after the load
+    for i, x in enumerate(chunks[: n // IVF_CHUNK]):
+        idx.upsert(range(i * IVF_CHUNK, (i + 1) * IVF_CHUNK), x)
+    idx.min_train_size = floor
+    _sync()
+    t0 = time.perf_counter()
+    idx.train(force=True)
+    _sync()
+    build_s = time.perf_counter() - t0
+    idx.delete(sorted(p for p in deleted if p < n))
+    idx.upsert(range(IVF_N, IVF_N + N_FRESH), fresh)
+    _sync()
+    return idx, build_s
+
+
+def phase_sharded_ivf(T, IP, errs, tag):
+    """Phase 10b: ShardedIVFIndex raw on phase 6's clustered rows over (1,
+    4), residual PQ (M = 192, packed) on their first PQ_N over (2, 2)."""
+    meshes = _meshes()
+    chunks, rng = _clustered_rows(SEED + 6, IVF_N)
+    deleted = set(rng.choice(IVF_N, IVF_N // 100, replace=False).tolist())
+    fresh = (chunks[0][rng.integers(0, IVF_CHUNK, N_FRESH)]
+             + rng.standard_normal((N_FRESH, DIMS), dtype=np.float32) * 0.5)
+    queries = {b: chunks[0][rng.integers(0, IVF_CHUNK, b)]
+               + rng.standard_normal((b, DIMS), dtype=np.float32) * 0.1 for b in SHARD_IVF_B}
+    launches, times, build = {}, {}, {}
+    for name, shape, n, kw, kernel in (("raw", "1x4", IVF_N, {}, "ivf_bucket_probe"),
+                                       ("pq192", "2x2", PQ_N, PQ_CONFIGS["pq192"], "ivf_adc")):
+        idx, build[name] = _load_sharded_ivf(meshes[shape], chunks, n, deleted, fresh, **kw)
+        contig = idx.bucket_codes if kw else idx.bucket_vectors
+        if contig is None:
+            raise AssertionError(f"phase10b {name}: no contiguous copy, the gather route is active")
+        print(f"phase10b built {name} over {shape}: {n} x {DIMS} bf16, C={IVF_CLUSTERS}, "
+              f"{idx.nsh} stripes, layout {tuple(idx.buckets.shape)}, contiguous "
+              f"{tuple(contig.shape)}; train + buckets {build[name]:.4f} s {tag}", flush=True)
+        _zero_counters(T, IP)
+        got = {b: idx.search_arrays(q, K) for b, q in queries.items()}
+        hits = idx.search(fresh[3] + 0.01, top_k=K)
+        _sync()
+        launches[name] = _want_launches(IP.LAUNCHES, {kernel: 4 * (len(queries) + 1)},
+                                        f"phase10b {name}")
+        if len(hits) != K or hits[0].primary_key != IVF_N + 3:
+            raise AssertionError(f"phase10b {name}: single-query search returned {hits[:2]}")
+        hit = total = 0
+        for b, (dist, pks) in got.items():
+            if dist.shape != (b, K) or not np.isfinite(dist).all():
+                raise AssertionError(f"phase10b {name} B={b}: bad result shape or values")
+            if any(p in deleted for p in pks.ravel()):
+                raise AssertionError(f"phase10b {name} B={b}: a deleted pk came back")
+            _, epks = idx.search_arrays(queries[b], K, mode="exact")
+            for row in range(b):
+                hit += len(set(pks[row].tolist()) & set(epks[row].tolist()))
+                total += K
+        recall = hit / total
+        _stripe_ivf_vs_plain(idx, queries, T, IP, errs, f"phase10b {name} over {shape}")
+        # a delete stales the cached bucket bias; the next search refreshes it
+        q8 = queries[SHARD_IVF_B[0]]
+        victims = sorted(set(got[SHARD_IVF_B[0]][1][:4, 0].tolist()))
+        idx.delete(victims)
+        if not idx._bias_stale:
+            raise AssertionError(f"phase10b {name}: a delete did not stale the bucket bias")
+        _, dpks = idx.search_arrays(q8, K)
+        if idx._bias_stale or set(victims) & set(dpks.ravel().tolist()):
+            raise AssertionError(f"phase10b {name}: stale bias {idx._bias_stale}, or a row "
+                                 "deleted after the build came back")
+        # a slot mask: the best hit of each query masked out never comes back
+        best = dpks[:, 0].tolist()
+        mask = torch.ones(idx.capacity, dtype=torch.bool, device=idx.device)
+        mask[torch.from_numpy(idx.slots_for_pks(best)).to(idx.device)] = False
+        _, mpks = idx.search_arrays(q8, K, slot_mask=mask)
+        if set(best) & set(mpks.ravel().tolist()) or (mpks == None).any():  # noqa: E711
+            raise AssertionError(f"phase10b {name}: a masked slot came back")
+        for b, q in queries.items():
+            times[name, b] = _host_ms(lambda: idx.search_arrays(q, K))
+        print(f"phase10b {name} over {shape}: recall@{K} vs mode='exact' {recall} over "
+              f"{total // K} queries; {kernel} launches {launches[name]}; no deleted or masked "
+              f"pk back; search_arrays host clock ms, 4 cells on one card: "
+              + ", ".join(f"B={b} {times[name, b]:.4f}" for b in queries) + f" {tag}", flush=True)
+        if recall < RECALL_MIN[name]:
+            raise AssertionError(f"phase10b {name}: recall@{K} {recall} < {RECALL_MIN[name]}")
+        del idx, contig
+        if SHARD_CELL != "cpu":
+            torch.cuda.empty_cache()
+    return launches, times, build
+
+
+def phase_sharded_engine(T, IP, errs, tag):
+    """Phase 10c: the engine over a mesh: ToStoreTPU.memory(device=one
+    card, mesh_shape=(4,)) with a flat and an IVF-PQ table, then a file
+    database that checkpoints and reopens under () and (2, 2)."""
+    import shutil
+    import tempfile
+
+    import tostore_tpu_torch as P
+    from tostore_tpu_torch.utils.rwlock import rw
+
+    rng = np.random.default_rng(SEED + 9)
+    price = rng.random(ENGINE_ROWS + 1)
+    ts_null = (np.arange(ENGINE_ROWS + 1) % TS_NULL_EVERY) == 0
+    schemas = [_engine_schema(P, "docs"),
+               _engine_schema(P, "pq", "ivf", num_clusters=ENGINE_IVF_CLUSTERS, nprobe=16,
+                              pq_subspaces=192)]
+    launches = {}
+    db = P.ToStoreTPU.memory(schemas=schemas, device=SHARD_CELL, mesh_shape=(4,))
+    n, spent = _engine_ingest(db, "docs", _normal_chunks(SEED + 10, SHARD_ENGINE_ROWS),
+                              price, ts_null)
+    queries = np.random.default_rng(SEED + 11).standard_normal(
+        (SHARD_ENGINE_QUERIES, DIMS), dtype=np.float32)
+    t0 = time.perf_counter()
+    db.vector_search("docs", "emb", queries[0], top_k=K)
+    first_s = time.perf_counter() - t0
+    vi = db.engine._table("docs").vector_index_for("emb")
+    if vi.index_type != "sharded_flat" or vi.nsh != 4 or vi.device != torch.device(SHARD_CELL):
+        raise AssertionError(f"the engine built {vi.index_type} on {vi.device}")
+    _zero_counters(T, IP)
+    serial, ms = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        serial.append(_pks(db.vector_search("docs", "emb", q, top_k=K)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches["lane_topk_acc"] = T.LAUNCHES["lane_topk_acc"]
+    _want_launches(T.LAUNCHES, {"lane_topk_acc": 4 * len(queries)}, "phase10c flat table")
+    agree = sum(len(set(got) & set(_pks(db.vector_search("docs", "emb", q, top_k=K,
+                                                         mode="exact"))))
+                for q, got in zip(queries, serial)) / (K * len(queries))
+    cond = P.QueryCondition().where("price", "<", 0.25).where("ts", "between", TS_RANGE)
+    lo, hi = TS_RANGE
+    checked = 0
+    for q in queries[:8]:
+        for h in db.vector_search("docs", "emb", q, top_k=K, condition=cond):
+            pk = h.primary_key
+            if not (price[pk - 1] < 0.25 and not ts_null[pk - 1] and lo <= T0_MS + pk <= hi):
+                raise AssertionError(f"phase10c filtered search returned pk {pk}")
+            checked += 1
+    print(f"phase10c engine, mesh_shape=(4,) on {SHARD_CELL}: flat table {n} x {DIMS} "
+          f"({vi.index_type}, {vi.nsh} stripes), ingest {n / spent:.0f} rows/s, first search "
+          f"{first_s:.2f} s; vector_search B=1 host clock median {np.median(ms):.4f} ms, 4 "
+          f"cells on one card; K1 launches {launches['lane_topk_acc']} in {len(queries)} "
+          f"searches; agreement with mode='exact' {agree}; {checked} filtered hits all satisfy "
+          f"the predicate {tag}", flush=True)
+    if agree < AGREEMENT_MIN or checked == 0:
+        raise AssertionError(f"phase10c: agreement {agree}, {checked} filtered hits")
+    _stripe_flat_vs_plain(vi, {1: queries[:1]}, T, IP, errs, "phase10c flat table")
+    db.drop_table("docs")
+    del vi
+    if SHARD_CELL != "cpu":
+        torch.cuda.empty_cache()
+
+    # the IVF-PQ table: trains inline at its first flush (the sharded index's
+    # rule, as in the reference), grows 4x, and maintenance installs the retrain
+    chunks, crng = _clustered_rows(SEED + 12, SHARD_ENGINE_IVF_ROWS)
+    ivf_q = chunks[0][crng.integers(0, len(chunks[0]), SHARD_ENGINE_QUERIES)] \
+        + crng.standard_normal((SHARD_ENGINE_QUERIES, DIMS), dtype=np.float32) * 0.1
+    seed_rows = min(SHARD_SEED_ROWS, len(chunks[0]))
+    _engine_ingest(db, "pq", [chunks[0][:seed_rows]], price, ts_null)
+    db.vector_search("pq", "emb", ivf_q[0], top_k=K)
+    vi = db.engine._table("pq").vector_index_for("emb")
+    if vi.index_type != "sharded_ivf" or not vi.trained or vi.needs_retrain():
+        raise AssertionError(f"phase10c pq: {vi.index_type}, trained {vi.trained}")
+    rest = [chunks[0][seed_rows:]] + chunks[1:]
+    n, spent = _engine_ingest(db, "pq", rest, price, ts_null, first_pk=seed_rows + 1)
+    db.vector_search("pq", "emb", ivf_q[0], top_k=K)  # flushes the staged rows
+    if not vi.needs_retrain():
+        raise AssertionError("phase10c pq: 4x growth did not ask for a retrain")
+    _sync()
+    t0 = time.perf_counter()
+    jobs = db.engine.run_vector_maintenance()
+    _sync()
+    train_s = time.perf_counter() - t0
+    retrains = db.engine._counters.get("background_retrains", 0)
+    if retrains < 1 or vi.needs_retrain() or vi.pq is None or vi.bucket_codes is None:
+        # (the crontab's own maintenance tick may have taken the job first)
+        raise AssertionError(f"phase10c pq: maintenance ran {jobs} jobs, {retrains} retrains")
+    _zero_counters(T, IP)
+    hit, ms = 0, []
+    for q in ivf_q:
+        t0 = time.perf_counter()
+        got = _pks(db.vector_search("pq", "emb", q, top_k=K))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches["ivf_adc"] = IP.LAUNCHES["ivf_adc"]
+        hit += len(set(got) & set(_pks(db.vector_search("pq", "emb", q, top_k=K, mode="exact"))))
+    _want_launches({"ivf_adc": launches["ivf_adc"]}, {"ivf_adc": 4 * len(ivf_q)},
+                   "phase10c pq table")
+    recall = hit / (K * len(ivf_q))
+    print(f"phase10c pq table: {seed_rows + n} x {DIMS} clustered rows ({vi.index_type}, "
+          f"C={ENGINE_IVF_CLUSTERS}, M=192 packed), trained inline on its first {seed_rows}; "
+          f"maintenance installed the 4x-growth retrain off-lock in {train_s:.2f} s; "
+          f"vector_search {np.median(ms):.4f} ms host clock, 4 cells on one card; K4 launches "
+          f"{launches['ivf_adc']}; recall@{K} vs exact {recall} {tag}", flush=True)
+    if recall < RECALL_MIN["pq192"]:
+        raise AssertionError(f"phase10c pq: recall@{K} {recall}")
+    _stripe_ivf_vs_plain(vi, {1: ivf_q[:1]}, T, IP, errs, "phase10c pq table")
+    db.close()
+    del vi, db
+    if SHARD_CELL != "cpu":
+        torch.cuda.empty_cache()
+
+    # durability: a file database under (4,), checkpointed, reopened under ()
+    # and (2, 2): the stripes are rebuilt for the mesh the opener has
+    path = tempfile.mkdtemp(prefix="tostore_smoke_mesh_")
+    try:
+        db = P.ToStoreTPU.open(path, schemas=schemas, device=SHARD_CELL, mesh_shape=(4,))
+        db.engine._table("pq").vector_index_for("emb").min_train_size = 1 << 62
+        _engine_ingest(db, "docs", _normal_chunks(SEED + 10, SHARD_DUR_ROWS), price, ts_null)
+        _engine_ingest(db, "pq", [c[: SHARD_DUR_ROWS // len(chunks)] for c in chunks],
+                       price, ts_null)
+        vi = db.engine._table("pq").vector_index_for("emb")
+        db.vector_search("pq", "emb", ivf_q[0], top_k=K)  # flush, still untrained
+        vi.min_train_size = 4096
+        with rw(vi).write():
+            vi.train()  # one build over all rows
+        want = {("docs", j): _pks(db.vector_search("docs", "emb", queries[j], top_k=K))
+                for j in range(4)}
+        want.update({("pq", j): _pks(db.vector_search("pq", "emb", ivf_q[j], top_k=K,
+                                                      mode="exact")) for j in range(4)})
+        probe = [_pks(db.vector_search("pq", "emb", ivf_q[j], top_k=K)) for j in range(4)]
+        t0 = time.perf_counter()
+        db.flush()
+        ckpt_s = time.perf_counter() - t0
+        ckpt_bytes = _dir_bytes(path)
+        db.close()
+        del vi, db
+        report, restored = [], None
+        for shape, kinds in (((), ("flat", "ivf")), ((2, 2), ("sharded_flat", "sharded_ivf"))):
+            if SHARD_CELL != "cpu":
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            db = P.ToStoreTPU.open(path, device=SHARD_CELL, mesh_shape=shape)
+            got = {("docs", j): _pks(db.vector_search("docs", "emb", queries[j], top_k=K))
+                   for j in range(4)}
+            got.update({("pq", j): _pks(db.vector_search("pq", "emb", ivf_q[j], top_k=K,
+                                                         mode="exact")) for j in range(4)})
+            open_s = time.perf_counter() - t0
+            found = tuple(db.engine._table(t).vector_index_for("emb").index_type
+                          for t in ("docs", "pq"))
+            again = [_pks(db.vector_search("pq", "emb", ivf_q[j], top_k=K)) for j in range(4)]
+            overlap = np.mean([len(set(a) & set(b)) / K for a, b in zip(again, probe)])
+            trained = db.engine._table("pq").vector_index_for("emb").trained
+            db.close()
+            del db
+            # a sharded snapshot holds the stored rows and no norms, so a restore
+            # takes the l2 norms from the bf16 rows: against the LIVE index the
+            # distances move by that rounding and two neighbours a rounding apart
+            # may swap (held to: the same nearest row, 0.9 of the rest). Two
+            # indexes restored from the same snapshot have the same norms: every
+            # mesh shape must return the same pks as the first reopen did
+            top1 = all(got[k][0] == want[k][0] for k in want)
+            same = {t: float(np.mean([len(set(got[k]) & set(want[k])) / K
+                                      for k in want if k[0] == t])) for t in ("docs", "pq")}
+            if found != kinds or not top1 or min(same.values()) < 0.9 or not trained \
+                    or overlap < RECALL_MIN["pq192"]:
+                raise AssertionError(f"phase10c reopen under {shape}: {found}, same nearest row "
+                                     f"{top1}, overlap {same}, trained {trained}, default "
+                                     f"route overlap {overlap}")
+            if restored is None:
+                restored, equal = got, "the reference of the reopens"
+            else:
+                differ = [k for k in got if sorted(got[k]) != sorted(restored[k])]
+                if differ:
+                    raise AssertionError(
+                        f"phase10c reopen under {shape}: other pks than the reopen under () "
+                        f"for {differ}: {[(got[k], restored[k]) for k in differ]}")
+                ordered = sum(got[k] == restored[k] for k in got)
+                equal = (f"the same pks as the reopen under () in all {len(got)} searches "
+                         f"({ordered} in the same order)")
+            report.append(f"mesh_shape={shape}: {found[0]} / {found[1]}, open + 8 searches "
+                          f"{open_s:.2f} s, {equal}; against the live index the same nearest "
+                          f"rows, top-{K} overlap flat {same['docs']} / IVF-PQ mode='exact' "
+                          f"{same['pq']}, default route {overlap}")
+        print(f"phase10c durability under mesh_shape=(4,) ({SHARD_DUR_ROWS} rows a table, a "
+              f"flat and an IVF-PQ one; phase 9c's depth): checkpoint {ckpt_s:.2f} s, "
+              f"{ckpt_bytes} bytes; reopened under " + "; ".join(report) + f" {tag}", flush=True)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return launches
+
+
+def phase_sharded_nccl(idx, queries, T, IP, tag):
+    """Phase 10d: the process-group path. NCCL at world size 1 on the card,
+    a mesh built after init_distributed (its collectives now run), and
+    10a's (1, 4) stripes searched through it: equal results."""
+    import socket
+
+    from tostore_tpu_torch.parallel import make_mesh
+    from tostore_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+
+    b = SHARD_FLAT_B[1]
+    before = idx.search_arrays(queries[b], K)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    addr = f"localhost:{sock.getsockname()[1]}"
+    sock.close()
+    t0 = time.perf_counter()
+    init_distributed(addr, num_processes=1, process_id=0,
+                     local_cpu_devices=4 if SHARD_CELL == "cpu" else None, timeout_s=60)
+    try:
+        import torch.distributed as dist
+
+        mesh = make_mesh(4, dp=1, devices=[SHARD_CELL] * 4)
+        if not mesh.distributed or dist.get_world_size() != 1:
+            raise AssertionError("the mesh did not join the process group")
+        old = idx.mesh
+        for part in (idx, idx.vectors, idx.valid, idx.sq_norms):
+            part.mesh = mesh  # the same stripes, addressed through the group's mesh
+        try:
+            _zero_counters(T, IP)
+            after = idx.search_arrays(queries[b], K)
+            probe = idx.vectors.gather(np.array([0, idx.capacity - 1]))  # the all-reduce path
+            _sync()
+            launches = _want_launches(T.LAUNCHES, {"lane_topk_acc": 4}, "phase10d")
+            ms = _host_ms(lambda: idx.search_arrays(queries[b], K))
+        finally:
+            for part in (idx, idx.vectors, idx.valid, idx.sq_norms):
+                part.mesh = old
+        backend = dist.get_backend()
+    finally:
+        shutdown_distributed()
+    if not (np.array_equal(before[0], after[0]) and (before[1] == after[1]).all()):
+        raise AssertionError("phase10d: the process-group path returned other results")
+    print(f"phase10d process group: {backend}, world size 1, init + first search "
+          f"{time.perf_counter() - t0:.2f} s; search_arrays B={b} through the group's mesh "
+          f"equals 10a's (distances bit for bit), {launches}, gathered rows "
+          f"{tuple(probe.shape)}; host clock {ms:.4f} ms; group destroyed {tag}", flush=True)
+    return ms
+
+
+def phase_sharded_dryrun(T, IP, tag):
+    """Phase 10e: `dryrun_multichip(4)` of __graft_entry_torch__.py with no
+    device named: 4 cells on the first card, its fused flat step through
+    K1 (f32 rows) and its IVF-PQ step through K4, once per cell."""
+    import __graft_entry_torch__ as g
+
+    _zero_counters(T, IP)
+    t0 = time.perf_counter()
+    g.dryrun_multichip(4)
+    _sync()
+    got = _want_launches({**T.LAUNCHES, **IP.LAUNCHES},
+                         {"lane_topk_acc_f32": 4, "ivf_adc": 4}, "phase10e")
+    print(f"phase10e dryrun_multichip(4) on its default device: passed in "
+          f"{time.perf_counter() - t0:.2f} s, launches {got} {tag}", flush=True)
+
 
 
 def _print_ptxas(log):
@@ -1930,9 +2529,30 @@ def main() -> int:
     errs.update(group_errs)
     hybrid_launches = phase_hybrid(flat, f32_idx, deleted, ivf_idxs, ivf_deleted, ivf_queries,
                                    T, IP)
-    del flat, f32_idx, ivf_idxs
+    del f32_idx, ivf_idxs  # the l2 index stays: phase 10a is held against it
     torch.cuda.empty_cache()
     engine_launches = phase_engine(T, IP, smi, times[1, "kernel"])
+
+    tag = f"[{smi}]"
+    sharded, shard_queries, flat_launches, _ = phase_sharded_flat(flat, deleted, T, IP, errs,
+                                                                  tag)
+    del flat
+    phase_sharded_nccl(sharded, shard_queries, T, IP, tag)
+    del sharded
+    torch.cuda.empty_cache()
+    shard_ivf_launches, _, shard_build_s = phase_sharded_ivf(T, IP, errs, tag)
+    shard_engine_launches = phase_sharded_engine(T, IP, errs, tag)
+    phase_sharded_dryrun(T, IP, tag)
+    # launches of K1-K4 from the sharded path, each leg read after its own
+    # zeroing: 10a's two meshes, 10b's two indexes, 10c's engine searches
+    sharded_launches = {
+        "lane_topk_acc": sum(v["lane_topk_acc"] for v in flat_launches.values())
+        + shard_engine_launches["lane_topk_acc"],
+        "lane_topk_emit": sum(v["lane_topk_emit"] for v in flat_launches.values()),
+        "ivf_bucket_probe": shard_ivf_launches["raw"]["ivf_bucket_probe"],
+        "ivf_adc": shard_ivf_launches["pq192"]["ivf_adc"] + shard_engine_launches["ivf_adc"],
+    }
+    print(f"phase10 launches from the sharded path: {sharded_launches}", flush=True)
 
     f32_src = "tostore_tpu_torch/csrc/lane_topk.cu"
     scan_src = "tostore_tpu_torch/csrc/lane_scan.cuh"
@@ -1947,6 +2567,8 @@ def main() -> int:
                "library_ms": None}  # no single PyTorch call computes these functions
         if name in engine_launches:  # phase 9: through ToStoreTPU.vector_search (K2: the
             row["engine_launches"] = engine_launches[name]  # engine table's index object)
+        if name in sharded_launches:  # phase 10: the per-stripe scans of parallel/
+            row["sharded_launches"] = sharded_launches[name]
         if product_ms is not None:  # the score product alone (cuBLAS), not the same function
             row["product_ms"] = product_ms
         if kernel_ms is not None:  # the kernel alone, device time (ms: the wrapper's call)
@@ -2001,7 +2623,8 @@ def main() -> int:
               ivf_times["raw", 64, "group_pairs plain"], ivf_bounds["raw", 64, "group_pairs"],
               kernel_ms=ivf_times["raw", 64, "prepass"]),
     ]}
-    print("build s (train + buckets): " + json.dumps(build_s), flush=True)
+    print("build s (train + buckets): " + json.dumps(build_s) + "; sharded over 4 cells of "
+          "one card: " + json.dumps(shard_build_s), flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 (`ivf_bucket_probe`), K4 (`ivf_adc`), K5 (`lane_topk_group`; f32
 `lane_topk_group_f32`) and K6 (`lane_topk_group_pipe`; f32
 `lane_topk_group_pipe_f32`) against their plain PyTorch versions on the
-same CUDA tensors, and the flat and IVF indexes on the card (filtered too)
-against the same indexes on the CPU.
+same CUDA tensors, the flat and IVF indexes on the card (filtered too)
+against the same indexes on the CPU, and the sharded indexes of parallel/
+on a mesh of 4 cells of one card against the single-device index.
 
 Every test needs an NVIDIA GPU (marker `cuda`) and skips without one. This
 file imports no JAX, so it runs on a machine without it; tests/conftest.py
@@ -711,3 +712,138 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, monkeypatch, tmp_path, prec)
     assert db.status.memory()["hbm_limit"] > 0
     db.close()
     dbs["cpu"].close()
+
+
+# --------------------------------------------------------------------------
+# parallel/: a mesh of 4 cells on one card against the single-device index
+# --------------------------------------------------------------------------
+
+
+def _card_mesh(dev, dp):
+    from tostore_tpu_torch.parallel import make_mesh
+
+    return make_mesh(4, dp=dp, devices=[dev] * 4)
+
+
+@pytest.fixture(params=[0])
+def card(request, cuda):
+    """The card the sharded tests run on, by index: the kernel wrappers
+    launch under the tensor's own device, so a machine with several cards
+    may add their indexes here."""
+    if request.param >= torch.cuda.device_count():
+        pytest.skip(f"no cuda:{request.param}")
+    return torch.device("cuda", request.param)
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+@pytest.mark.parametrize("precision", ["bfloat16", "int8", "float32"])
+def test_sharded_flat_on_card_matches_single_device(card, monkeypatch, dp, precision):
+    from tostore_tpu_torch.parallel import ShardedFlatIndex
+
+    monkeypatch.setattr(ttopk, "MIN_FUSED_N", 0)  # the stripes are small: take the kernels
+    rng = np.random.default_rng(31)
+    n, d = 20_000, 256
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    one = FlatVectorIndex(d, "l2", precision, device=card)
+    sh = ShardedFlatIndex(d, _card_mesh(card, dp), "l2", precision)
+    for idx in (one, sh):
+        idx.upsert(list(range(n)), x)
+        idx.delete(list(range(0, n, 50)))
+    assert all(t.device == card for t in sh.vectors.parts.values())
+    for b, kernel in ((1, "lane_topk_acc"), (8, "lane_topk_acc"), (80, "lane_topk_emit")):
+        q = x[rng.integers(0, n, b)] + rng.standard_normal((b, d)).astype(np.float32) * 0.1
+        before = _launches()
+        sd, sp = sh.search_arrays(q, 10)
+        name = _kernel_name(kernel, precision)
+        assert ttopk.LAUNCHES[name] == before[name] + 4  # once per cell
+        od, _, op = one.search_arrays(q, 10)
+        assert not any(p % 50 == 0 for p in sp.ravel())
+        same = np.mean([len(set(sp[i]) & set(op[i])) / 10 for i in range(b)])
+        assert same >= 0.99, (b, same)
+        # f32 sums in another order (tests/torch_parity.py), on the squared distances
+        np.testing.assert_allclose(np.sort(sd, 1) ** 2, np.sort(od, 1) ** 2,
+                                   rtol=10 * TOL[precision], atol=1e-2)
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+@pytest.mark.parametrize("pq", [0, 16])
+def test_sharded_ivf_on_card_matches_cpu_cells(card, dp, pq):
+    """The sharded IVF index on 4 cells of the card against the same index
+    on 4 CPU cells with its centroids and codebooks carried across: K3 / K4
+    launch once per cell, and the results agree."""
+    from tostore_tpu_torch.parallel import make_mesh
+    from tostore_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+
+    rng = np.random.default_rng(33)
+    nat, n, d = 30, 6000, 128
+    centers = rng.standard_normal((nat, d)).astype(np.float32) * 4
+    x = (centers[rng.integers(0, nat, n)] + rng.standard_normal((n, d)) * 0.5).astype(np.float32)
+    host = ShardedIVFIndex(d, make_mesh(4, dp=dp, devices=["cpu"] * 4), "l2", "bfloat16",
+                           num_clusters=16, nprobe=6, min_train_size=100, pq_subspaces=pq)
+    host.upsert(list(range(n)), x)
+    host.delete(list(range(0, 300, 3)))
+    on_card = ShardedIVFIndex.from_state_dict(host.state_dict(), _card_mesh(card, dp))
+    host = ShardedIVFIndex.from_state_dict(host.state_dict(), host.mesh)
+    contig = on_card.bucket_codes if pq else on_card.bucket_vectors
+    assert contig is not None and all(t.device == card for t in contig.parts.values())
+    np.testing.assert_array_equal(on_card._bucket_counts, host._bucket_counts)
+    q = x[rng.integers(0, n, 6)] + rng.standard_normal((6, d)).astype(np.float32) * 0.05
+    kernel = "ivf_adc" if pq else "ivf_bucket_probe"
+    before = dict(tivf.LAUNCHES)
+    cd, cp = on_card.search_arrays(q, 10)
+    assert tivf.LAUNCHES[kernel] == before[kernel] + 4  # once per cell
+    hd, hp = host.search_arrays(q, 10)
+    same = np.mean([len(set(cp[i]) & set(hp[i])) / 10 for i in range(6)])
+    assert same >= 0.95, same
+    np.testing.assert_allclose(np.sort(cd, 1) ** 2, np.sort(hd, 1) ** 2, rtol=1e-3, atol=1e-2)
+    # a delete stales the cached bias; a slot mask never caches
+    victim = cp[0][0]
+    on_card.delete([victim])
+    assert on_card._bias_stale
+    assert victim not in on_card.search_arrays(q[:1], 10)[1]
+    mask = torch.ones(on_card.capacity, dtype=torch.bool, device=card)
+    mask[int(on_card.slots_for_pks([cp[1][0]])[0])] = False
+    assert cp[1][0] not in on_card.search_arrays(q[1:2], 10, slot_mask=mask)[1]
+    assert cp[1][0] in on_card.search_arrays(q[1:2], 10)[1]
+
+
+def test_engine_mesh_on_card(card, monkeypatch):
+    """`mesh_shape` with a device that has an index: every cell on that
+    card; with "cuda" alone a mesh of more cells than cards raises."""
+    import tostore_tpu_torch as P
+
+    monkeypatch.setattr(ttopk, "MIN_FUSED_N", 0)
+    rng = np.random.default_rng(35)
+    x = rng.standard_normal((5000, 256)).astype(np.float32)
+    db = P.ToStoreTPU.memory(schemas=[_engine_schema(P, "docs", "bfloat16", index_type="flat")],
+                             device=str(card), mesh_shape=(2, 2))
+    try:
+        db.batch_insert("docs", [{"price": float(i % 50), "emb": x[i]} for i in range(5000)])
+        vi = db.engine._table("docs").vector_indexes["emb"]
+        assert vi.index_type == "sharded_flat"
+        before = _launches()
+        assert db.vector_search("docs", "emb", x[7], top_k=1)[0].primary_key == 8
+        assert ttopk.LAUNCHES["lane_topk_acc"] == before["lane_topk_acc"] + 4
+        hits = db.vector_search("docs", "emb", x[7], top_k=5,
+                                condition=P.QueryCondition().where("price", ">", 20.0))
+        assert hits and all(db.get_by_pk("docs", h.primary_key)["price"] > 20.0 for h in hits)
+    finally:
+        db.close()
+    if torch.cuda.device_count() < 4:
+        with pytest.raises(RuntimeError, match="cards"):
+            P.ToStoreTPU.memory(schemas=[_engine_schema(P, "docs", "bfloat16",
+                                                        index_type="flat")],
+                                device="cuda", mesh_shape=(4,))
+
+
+@pytest.mark.parametrize("n", [4, 1])
+def test_dryrun_multichip_defaults_to_the_card(cuda, n):
+    """The harness entry point with no device named: n cells on the first
+    card, the flat step through K1 (f32 form) and the IVF-PQ step through
+    K4, once per cell."""
+    import __graft_entry_torch__ as g  # at the repository's root: run with `python -m pytest`
+
+    flat, ivf = _launches(), dict(tivf.LAUNCHES)
+    g.dryrun_multichip(n)
+    assert ttopk.LAUNCHES["lane_topk_acc_f32"] == flat["lane_topk_acc_f32"] + n
+    assert tivf.LAUNCHES["ivf_adc"] == ivf["ivf_adc"] + n

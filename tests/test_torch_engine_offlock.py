@@ -9,7 +9,7 @@ the kernels' plain versions. The engine releases its lock across a search
 with the index pinned in shared mode (utils/rwlock.py); IVF indexes train
 and compact off-lock in `run_vector_maintenance`. Also here: what the port
 itself adds to the engine (the device carried from the config down to the
-indexes, the named NotImplementedError for a mesh, device memory info,
+indexes, a mesh_shape down to the sharded indexes, device memory info,
 the profiler hook, launch counters under threads).
 """
 
@@ -518,8 +518,26 @@ class TestPortDevice:
 
     @pytest.mark.parametrize("shape", [(2,), (2, 2), (1, 4)])
     def test_mesh_raises_named_error(self, shape):
-        with pytest.raises(NotImplementedError, match="parallel/"):
-            ToStoreTPU.memory(schemas=[_vec_schema()], device="cpu", mesh_shape=shape)
+        """What raises, by name, is a mesh of more cards than the machine
+        has; a mesh on a device that exists builds the sharded index."""
+        # a mesh builds the sharded index (parallel/), every cell on the
+        # device the config names with an index or as "cpu" ...
+        d = ToStoreTPU.memory(schemas=[_vec_schema()], device="cpu", mesh_shape=shape)
+        try:
+            vi = d.engine._table("docs").vector_indexes["emb"]
+            assert vi.index_type == "sharded_flat" and vi.nsh == shape[-1]
+            assert len(d.engine._mesh.devices.flat) == int(np.prod(shape))
+            assert all(c.device.type == "cpu" for c in d.engine._mesh.devices.flat)
+            d.insert("docs", {"id": 7, "n": 7, "emb": [1.0] * 8})
+            assert d.vector_search("docs", "emb", np.ones(8, np.float32),
+                                   top_k=1)[0].primary_key == 7
+        finally:
+            d.close()
+        # ... while "cuda" asks for one card a cell: with fewer cards the
+        # error names them, and nothing is built on the CPU in their place
+        if torch.cuda.device_count() < int(np.prod(shape)):
+            with pytest.raises(RuntimeError, match="cards"):
+                ToStoreTPU.memory(schemas=[_vec_schema()], device="cuda", mesh_shape=shape)
 
     @pytest.mark.parametrize("shape", [(), (1,), (1, 1)])
     def test_one_device_mesh_is_single_device(self, shape):
@@ -528,12 +546,28 @@ class TestPortDevice:
         d.close()
 
     def test_table_refuses_a_mesh(self):
+        """A table takes a mesh whose cells exist (sharded indexes, new or
+        restored) and refuses only one of cards that are not there."""
         from tostore_tpu_torch.engine.table import Table, _index_from_state
+        from tostore_tpu_torch.parallel import make_mesh
 
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            Table(_vec_schema(), 0, object(), device="cpu")
-        with pytest.raises(NotImplementedError):
-            _index_from_state({"type": "flat"}, object(), device="cpu")
+        # a table takes the mesh it is given: sharded indexes, new or restored
+        mesh = make_mesh(4, dp=2, devices=["cpu"] * 4)
+        t = Table(_vec_schema(), 0, mesh, device="cpu")
+        assert t.vector_indexes["emb"].index_type == "sharded_flat" and t.mesh is mesh
+        x = np.random.default_rng(2).standard_normal((40, 8)).astype(np.float32)
+        single = ToStoreTPU.memory(schemas=[_vec_schema()], device="cpu")
+        single.batch_insert("docs", [{"id": i, "n": i, "emb": x[i]} for i in range(40)])
+        single.vector_search("docs", "emb", x[0], top_k=1)
+        state = single.engine._table("docs").vector_indexes["emb"].state_dict()
+        single.close()
+        vi = _index_from_state(state, mesh, device="cpu")
+        assert vi.index_type == "sharded_flat" and len(vi) == 40
+        assert vi.search(x[9], top_k=1)[0].primary_key == 9
+        # what it refuses is a mesh of cards that are not there
+        if torch.cuda.device_count() < 4:
+            with pytest.raises(RuntimeError, match="cards"):
+                make_mesh(4)
 
     def test_profile_trace_writes_a_chrome_trace(self, db, tmp_path):
         with db.profile_trace(str(tmp_path / "trace")):

@@ -4,7 +4,8 @@ interpreter blocks those packages with a sys.meta_path finder, then
 imports tostore_tpu_torch and runs CPU searches (flat and IVF-PQ),
 snapshot round trips, and the engine through the facade: a memory and a
 file database, inserts, searches, a checkpoint of a bf16 corpus (written
-as dtype code 8 without ml_dtypes) and a reopen.
+as dtype code 8 without ml_dtypes) and a reopen; then the sharded indexes
+and a `mesh_shape` database on a mesh of 4 CPU cells.
 """
 
 import os
@@ -127,6 +128,24 @@ _SCRIPT = textwrap.dedent("""
     assert db.count("docs") == 601
     db.close()
     assert native.which() in ("native", "python")
+    # the sharded indexes on a mesh of 4 CPU cells, (2, 2)
+    from tostore_tpu_torch.parallel import ShardedFlatIndex, make_mesh
+    from tostore_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+    mesh = make_mesh(4, dp=2, devices=["cpu"] * 4)
+    sh = ShardedFlatIndex(96, mesh, "l2", "bfloat16")
+    sh.upsert(list(range(3000)), x)
+    d, p = sh.search_arrays(x[:5], 3)
+    assert p[:, 0].tolist() == [0, 1, 2, 3, 4]
+    assert sh.state_dict()["vectors"].dtype.name == "bfloat16"
+    siv = ShardedIVFIndex(96, mesh, "l2", "bfloat16", num_clusters=8, nprobe=4,
+                          pq_subspaces=16, min_train_size=100)
+    siv.upsert(list(range(3000)), x)
+    assert siv.bucket_codes is not None and siv.search(x[7], top_k=1)[0].primary_key == 7
+    mdb = ToStoreTPU.memory(schemas=[schema], device="cpu", mesh_shape=(4,))
+    assert mdb.batch_insert("docs", recs).is_success
+    assert mdb.engine._table("docs").vector_indexes["emb"].index_type == "sharded_flat"
+    assert mdb.vector_search("docs", "emb", x[7], top_k=1)[0].primary_key == 8
+    mdb.close()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("OK")
@@ -159,11 +178,37 @@ def test_port_exports_the_reference_names():
     assert not missing, missing
 
 
+def test_parallel_exports_the_reference_names():
+    import tostore_tpu.parallel as ref
+    import tostore_tpu_torch.parallel as port
+    from tostore_tpu_torch.parallel import mesh, sharded, sharded_ivf
+
+    # the reference's NamedSharding spec helpers have no counterpart: the
+    # port builds `mesh.Striped` / `mesh.Replicated` values directly
+    specs = {"corpus_sharding", "query_sharding", "replicated"}
+    assert port.__all__ == [n for n in ref.__all__ if n not in specs]
+    assert all(hasattr(port, n) for n in port.__all__)
+    for mod, names in ((mesh, ("init_distributed", "host_local_to_global", "read_to_host",
+                               "replicated_from_host", "make_mesh", "shard_count", "Striped",
+                               "Replicated")),
+                       (sharded, ("sharded_flat_topk", "sharded_kmeans", "sharded_kmeans_step",
+                                  "state_vectors_f32", "ShardedFlatIndex")),
+                       (sharded_ivf, ("_sharded_ivf_assign", "_sharded_ivf_place",
+                                      "_sharded_bucket_bias", "_sharded_bucket_codes",
+                                      "_probe_select", "_merge_local_topk",
+                                      "_sharded_ivf_probe_contig", "_sharded_ivf_probe_pq_contig",
+                                      "_sharded_ivf_probe", "_sharded_ivf_probe_pq",
+                                      "ShardedIVFIndex"))):
+        assert not [n for n in names if not hasattr(mod, n)], mod.__name__
+
+
 def test_port_mirrors_the_reference_layout():
-    """Every module of the JAX package that the port carries keeps its
-    file name; parallel/ is the part still to port."""
+    """Every module of the JAX package has its counterpart in the port,
+    under the same file name, parallel/ included."""
     ref = {p.relative_to(REPO / "tostore_tpu").as_posix()
            for p in (REPO / "tostore_tpu").rglob("*.py")}
     port = {p.relative_to(REPO / "tostore_tpu_torch").as_posix()
             for p in (REPO / "tostore_tpu_torch").rglob("*.py")}
-    assert {m for m in ref - port if not m.startswith("parallel/")} == set()
+    assert ref - port == set()
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/sharded.py",
+            "parallel/sharded_ivf.py"} <= port

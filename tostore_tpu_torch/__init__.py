@@ -10,9 +10,9 @@ torch device the config names (`DataStoreConfig.device`, default
 `"cuda"`; `ToStoreTPU.open(path, device="cpu")` for the CPU). On a CUDA
 device the flat scan and the IVF bucket scans run the hand-written Hopper
 kernels in `csrc/`, built with nvcc at first use (ops/_kernels.py). A
-database written by either package opens in the other. The sharded
-indexes of `tostore_tpu/parallel/` are not ported yet: a `mesh_shape` of
-more than one device raises NotImplementedError.
+database written by either package opens in the other. A `mesh_shape` of
+more than one device stripes the vector corpora over a mesh of cells
+(parallel/): one cell per card, or several on one device.
 """
 
 from .models.schema import (

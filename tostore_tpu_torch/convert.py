@@ -10,7 +10,10 @@ same wire tag as the ml_dtypes type, 2 bytes a value; handed to the JAX
 package in memory it widens exactly to float32 (`__array__`), which that
 package's `from_state_dict` casts back to bf16. An IVF snapshot carries the
 corpus, the centroids and the PQ codebooks; the bucket layout is rebuilt
-from them on load, in either package.
+from them on load, in either package. The sharded indexes' snapshots
+(`ShardedFlatIndex.state_dict()`, `ShardedIVFIndex.state_dict()`) hold the
+live rows in storage dtype with their pks; the stripes, the slots and the
+bucket layout are rebuilt on load over whatever mesh the loader has.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from .vector.corpus import INT8_SCALE, DeviceCorpus
 from .vector.flat import FlatVectorIndex
 from .vector.ivf import IVFVectorIndex
 from .vector.pq import PQCodebook
+from .parallel.sharded import ShardedFlatIndex
+from .parallel.sharded_ivf import ShardedIVFIndex
 
 
 def _rows_to_tensor(vecs: np.ndarray) -> torch.Tensor:
@@ -158,3 +163,37 @@ def ivf_index_to_reference_state(idx: IVFVectorIndex) -> dict:
         "trained_size": idx._trained_size,
         "pq": idx.pq.state_dict() if idx.pq is not None else None,
     }
+
+
+def _sharded_state_in(state: dict) -> dict:
+    """The reference's sharded state with its bf16 rows (an `ml_dtypes`
+    array) as a BF16Array of the same bits, which needs no `ml_dtypes`."""
+    vecs = state["vectors"]
+    if is_bf16(vecs) and not isinstance(vecs, BF16Array):
+        state = {**state, "vectors": BF16Array(np.ascontiguousarray(vecs).view(np.int16))}
+    return state
+
+
+def sharded_flat_index_from_reference(state: dict, mesh) -> ShardedFlatIndex:
+    """The port's ShardedFlatIndex over `mesh` from a JAX
+    `ShardedFlatIndex.state_dict()`: rows re-striped in pk order, as the
+    JAX package restores them, so the slots agree."""
+    return ShardedFlatIndex.from_state_dict(_sharded_state_in(state), mesh)
+
+
+def sharded_flat_index_to_reference_state(idx: ShardedFlatIndex) -> dict:
+    """A state dict that the JAX `ShardedFlatIndex.from_state_dict` opens
+    (bf16 rows widen exactly to float32 there and are cast back)."""
+    return idx.state_dict()
+
+
+def sharded_ivf_index_from_reference(state: dict, mesh) -> ShardedIVFIndex:
+    """The port's ShardedIVFIndex over `mesh` from a JAX
+    `ShardedIVFIndex.state_dict()`: corpus, centroids and residual PQ
+    codebooks; the slice layout and the codes are rebuilt here."""
+    return ShardedIVFIndex.from_state_dict(_sharded_state_in(state), mesh)
+
+
+def sharded_ivf_index_to_reference_state(idx: ShardedIVFIndex) -> dict:
+    """A state dict that the JAX `ShardedIVFIndex.from_state_dict` opens."""
+    return idx.state_dict()

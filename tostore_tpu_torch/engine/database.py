@@ -60,7 +60,7 @@ from ..utils import codec
 from ..utils.bf16 import BF16Array
 from ..utils.logging import Logger
 from ..utils.rwlock import ReadGuard, RWLock, WriteGuard, rw
-from .table import INGEST_TS_FIELD, SHARDED_NOT_PORTED, Table, ValidationError
+from .table import INGEST_TS_FIELD, Table, ValidationError
 from .wal import (
     SegmentedWalWriter,
     iter_wal_segments,
@@ -580,15 +580,29 @@ class Database:
         return pks
 
     def _make_mesh(self):
-        """The JAX package's device mesh for sharded vector corpora (config
-        mesh_shape: (shard,) or (dp, shard)). The port has no sharded index
-        yet: () and a one-device shape mean a single device, more raises."""
+        """Optional mesh of cells for sharded vector corpora (config
+        mesh_shape: (shard,) or (dp, shard)); () and a one-cell shape mean a
+        single device. Where the cells live follows `config.device`
+        (models/config.py): after `parallel.mesh.init_distributed` they
+        follow the process group's ranks; a device without an index
+        ("cuda") puts one cell on each of cuda:0..n-1 and raises when the
+        machine has fewer cards; a device with an index ("cuda:0") or
+        "cpu" holds every cell."""
+        shape = self.config.mesh_shape
+        if not shape:
+            return None
         import math as _math
 
-        if _math.prod(self.config.mesh_shape or (1,)) > 1:
-            # never a single-device index in a sharded deployment's place
-            raise NotImplementedError(SHARDED_NOT_PORTED)
-        return None
+        from ..parallel.mesh import distributed_initialized, make_mesh
+
+        n = _math.prod(shape)
+        if n <= 1:
+            return None
+        dp = shape[0] if len(shape) == 2 else 1
+        dev = torch.device(self.config.device)
+        if distributed_initialized() or (dev.type == "cuda" and dev.index is None):
+            return make_mesh(n_devices=n, dp=dp)
+        return make_mesh(n_devices=n, dp=dp, devices=[dev] * n)
 
     def _kdf_params(self) -> tuple[bytes, int]:
         """Per-database KDF salt + iteration count. New databases get a

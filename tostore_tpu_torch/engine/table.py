@@ -585,34 +585,47 @@ class SortedIndex:
         return self.span_rows(store, self.range_span(store, lo, hi, lo_open, hi_open))
 
 
-SHARDED_NOT_PORTED = (
-    "a mesh of more than one device needs the sharded indexes of parallel/, "
-    "which the PyTorch port does not have yet (ROADMAP.md, queue 1 item 3: "
-    "parallel/ on torch.distributed)"
-)
+def _sharded(mesh) -> bool:
+    """A mesh of more than one cell asks for the sharded indexes."""
+    return mesh is not None and len(mesh.devices.flat) > 1
 
 
-def _single_device_only(mesh):
-    """The port has no sharded index: a mesh raises, and nothing builds a
-    single-device index in its place."""
-    if mesh is not None:
-        raise NotImplementedError(SHARDED_NOT_PORTED)
+def _sharded_dtype(precision: str) -> str:
+    return precision if precision in ("bfloat16", "int8") else "float32"
 
 
 def _make_vector_index(dims: int, precision: str, idx: IndexSchema, mesh=None, *, device):
-    _single_device_only(mesh)
     # the corpus allocates at the first row: touch the device now, so that a
     # table declared on a device that is not there raises torch's own error
     # when it is declared, not at some later write
-    torch.empty(0, device=device)
+    torch.empty(0, device=mesh.device if _sharded(mesh) else device)
     cfg = idx.vector_config
     metric = cfg.metric.kernel_name
-    vi = _make_vector_index_inner(dims, precision, cfg, metric, device)
+    vi = _make_vector_index_inner(dims, precision, cfg, metric, mesh, device)
     vi.search_mode = cfg.search_mode  # 'auto' | 'exact' default per index
     return vi
 
 
-def _make_vector_index_inner(dims, precision, cfg, metric, device):
+def _make_vector_index_inner(dims, precision, cfg, metric, mesh, device):
+    if _sharded(mesh):
+        # mesh-striped corpus (parallel/)
+        dtype = _sharded_dtype(precision)
+        if cfg.index_type.value in ("ivf", "ngh"):
+            from ..parallel.sharded_ivf import ShardedIVFIndex
+
+            sivf = ShardedIVFIndex(
+                dims, mesh, metric=metric, dtype=dtype,
+                num_clusters=cfg.num_clusters, nprobe=cfg.nprobe,
+                pq_subspaces=cfg.pq_subspaces, pq_centroids=cfg.pq_centroids,
+                rerank_factor=cfg.rerank_factor, pq_rerank=cfg.pq_rerank,
+            )
+            # engine-owned: growth retrains + compactions run off-lock in
+            # background maintenance (Database.run_vector_maintenance)
+            sivf.defer_retrain = True
+            return sivf
+        from ..parallel.sharded import ShardedFlatIndex
+
+        return ShardedFlatIndex(dims, mesh, metric=metric, dtype=dtype)
     if cfg.index_type.value in ("ivf", "ngh"):
         ivf = IVFVectorIndex(
             dims,
@@ -646,7 +659,6 @@ def filterable_fields(schema: TableSchema) -> tuple[str, ...]:
 
 class Table:
     def __init__(self, schema: TableSchema, node_id: int = 0, mesh=None, *, device):
-        _single_device_only(mesh)
         self.schema = schema
         self.store = ColumnStore(schema)
         self.store.ensure_column(INGEST_TS_FIELD, DataType.datetime)
@@ -1320,28 +1332,68 @@ class Table:
         return t
 
 
-def state_vectors_f32(d: dict) -> np.ndarray:
-    """Storage-space f32 rows from a sharded index state dict (the JAX
-    package's `parallel/sharded.py` format): int8 states carry raw codes +
-    per-row scales (dequantized here; the upsert path re-quantizes to the
-    identical codes/scales), bf16/f32 states upcast directly."""
-    vecs = d["vectors"]
-    if getattr(vecs, "dtype", None) == np.int8:
-        return vecs.astype(np.float32) * np.asarray(
-            d["scales"], np.float32
-        )[:, None]
-    return np.asarray(vecs, np.float32)
-
-
 def _index_from_state(vs: dict, mesh=None, *, device):
-    """Restore a vector index on `device`. A snapshot written by a
-    mesh-sharded deployment of the JAX package opens as a single-device
-    index (IVF keeps its config and centroids); restoring INTO a sharded
-    layout waits for parallel/ and raises."""
-    _single_device_only(mesh)
+    """Restore a vector index, converting between single-device (on
+    `device`) and mesh-sharded layouts when the deployment changed across
+    restarts."""
+    vtype = vs.get("type", "flat")
+    if _sharded(mesh):
+        from ..parallel.sharded import ShardedFlatIndex
+        from ..parallel.sharded_ivf import ShardedIVFIndex
+
+        if vtype == "sharded_ivf":
+            sivf = ShardedIVFIndex.from_state_dict(vs, mesh)
+            sivf.defer_retrain = True  # engine-owned: background maintenance
+            return sivf
+        if vtype == "sharded_flat":
+            return ShardedFlatIndex.from_state_dict(vs, mesh)
+        # single-device snapshot -> sharded: stored rows are already in
+        # storage space (normalized/padded), re-stripe them, preserving
+        # the IVF configuration + centroids when the snapshot was IVF
+        cs = vs["corpus"]
+        vecs = np.asarray(cs["vectors"], np.float32)  # a BF16Array widens exactly
+        if cs["precision"] == "int8":
+            sc = cs.get("scales")
+            if sc is not None:  # per-vector dequant factors
+                vecs = vecs * np.asarray(sc, np.float32)[:, None]
+            else:  # legacy global value/127 rule
+                vecs = vecs / 127.0
+        dtype = _sharded_dtype(cs["precision"])
+        if vtype == "ivf":
+            sh = ShardedIVFIndex(
+                cs["dims"], mesh, vs["metric"], dtype,
+                num_clusters=vs.get("num_clusters_cfg", 0),
+                nprobe=vs.get("nprobe", 8),
+                pq_subspaces=vs.get("pq_subspaces", 0),
+                pq_centroids=vs.get("pq_centroids", 256),
+                rerank_factor=vs.get("rerank_factor", 2),
+                pq_rerank=vs.get("pq_rerank", 0),
+            )
+            orig_min = sh.min_train_size
+            sh.min_train_size = 1 << 62
+            try:
+                if len(cs["pks"]):
+                    sh.upsert(cs["pks"], vecs[:, : cs["dims"]], _prepped=vecs)
+            finally:
+                sh.min_train_size = orig_min
+            if vs.get("centroids") is not None:
+                # residual codebooks transfer across topologies (slice
+                # centroids are duplicated CLUSTER centroids, the same
+                # residual space); legacy raw-code books do not
+                books = vs.get("pq") if vs.get("pq_residual", False) else None
+                sh._install_centroids(
+                    vs["centroids"], vs.get("trained_size", len(sh)), books)
+            sh.defer_retrain = True  # engine-owned: background maintenance
+            return sh
+        sh = ShardedFlatIndex(cs["dims"], mesh, vs["metric"], dtype)
+        if len(cs["pks"]):
+            sh.upsert(cs["pks"], vecs[:, : cs["dims"]], _prepped=vecs)
+        return sh
     vtype = vs.get("type", "flat")
     if vtype in ("sharded_flat", "sharded_ivf"):
         # sharded snapshot -> single device (IVF keeps its config/centroids)
+        from ..parallel.sharded import state_vectors_f32
+
         vecs = state_vectors_f32(vs)
         if vtype == "sharded_ivf":
             ivf = IVFVectorIndex(

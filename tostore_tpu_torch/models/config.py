@@ -5,6 +5,18 @@ Mirrors the reference's layered config (reference model/data_store_config.dart:
 device-native additions: the torch device of the vector corpora, device
 dtype policy, mesh/shard settings, and HBM budgeting instead of the mobile
 cache budgets. Counterpart of `tostore_tpu/models/config.py`.
+
+Where a mesh's cells live (`mesh_shape` of more than one cell, with
+`device`; engine/database.py `_make_mesh`, parallel/mesh.py):
+  - after `parallel.mesh.init_distributed`, the cells follow the process
+    group's ranks (gloo: so many CPU cells a process; nccl: one rank and
+    one cell per card);
+  - `device` without an index (`"cuda"`, the default): cell i lives on
+    `cuda:i`; a machine with fewer cards than cells raises, and nothing
+    is built on the CPU in their place;
+  - `device` with an index (`"cuda:0"`) or `"cpu"`: every cell lives on
+    that one device (several stripes of one card, or the CPU cells the
+    tests use).
 """
 
 from __future__ import annotations
@@ -110,7 +122,7 @@ class DataStoreConfig:
     device_put_vectors: bool = True  # keep vector corpora device-resident
     default_vector_dtype: str = "float32"  # scoring dtype for new indexes
     hbm_budget_mb: int = 0  # 0 = auto from device memory stats
-    mesh_shape: tuple[int, ...] = ()  # () = single device
+    mesh_shape: tuple[int, ...] = ()  # () = single device; (shard,) or (dp, shard)
     mesh_axis_names: tuple[str, ...] = ("shard",)
 
     # subsystem configs

@@ -134,6 +134,22 @@ class FilterColumns:
                 nnul[:m] = nul[gather]
             self.int_columns[name] = (nval, nnul)
 
+    def move_ranges(self, ranges, new_cap: int):
+        """Re-lay all columns out at capacity new_cap: each (src, dst, n) of
+        `ranges` moves slots src .. src+n-1 to dst .. dst+n-1, every other
+        slot reads as null (the sharded indexes' re-stripe on growth)."""
+        for name, col in list(self.columns.items()):
+            new = self._nan(new_cap)
+            for src, dst, n in ranges:
+                new[dst:dst + n] = col[src:src + n]
+            self.columns[name] = new
+        for name, (val, nul) in list(self.int_columns.items()):
+            nval, nnul = self._empty_int(new_cap)
+            for src, dst, n in ranges:
+                nval[dst:dst + n] = val[src:src + n]
+                nnul[dst:dst + n] = nul[src:src + n]
+            self.int_columns[name] = (nval, nnul)
+
     def gather_host(self, slots) -> dict:
         """Host-side snapshot of the columns at the given slots (int columns
         as (hi int32, lo uint32, isnull) triples)."""
