@@ -175,13 +175,25 @@ imports nothing of JAX or tostore_tpu. Phases:
      nearest rows. (e) dryrun_multichip(4) of __graft_entry_torch__.py on
      its default device, the card: K1 (f32) and K4 once per cell.
 
+ 11. The measuring scripts, each run from this checkout in a process of its
+     own, as a user runs them: bench_torch.py (the headline line at 1M x
+     768 bf16, B = 256: its metric name, value > 0, K2 launched by its
+     counters), _verify_drive_torch.py (crash and reopen; must end in
+     "VERIFY DRIVE OK") and bench_all_torch.py configs 1, 2, 4, 5 and 7
+     (no error; recall or agreement against the exact scan >= 0.999 for
+     #1, #2's auto-served rows and #4, every hit of #4 inside its
+     predicate, #7's top-10 agreement with bf16 >= 0.95, #5's dry run
+     passed; each config's kernels launched: K1 f32 / K1 and K2 / K1 /
+     K1 f32 and K4 / K2 int8).
+
 Prints the card's name and power limit, the torch and CUDA versions, the
 build time, a JSON line of the kernels (each with its launches on its
 path, max_abs_err, ms, plain_ms, bound_ms / bound_by computed from this
 run's shapes, library_ms, null where no single PyTorch call computes the
 function, kernel_ms where the kernel alone was timed, product_ms for
 the lane scans and K3, and for K1-K4 engine_launches, their launches in
-phase 9, and sharded_launches, those of phase 10; the six kernels, then
+phase 9, sharded_launches, those of phase 10, and bench_launches, those
+of phase 11's script processes summed; the six kernels, then
 their f32 forms and the IVF
 grouping pre-pass), and last `{"ok": true, ...}`. Any failure raises
 and exits non-zero.
@@ -2455,6 +2467,98 @@ def phase_sharded_dryrun(T, IP, tag):
 
 
 
+# --------------------------------------------------------------------------
+# Phase 11: the measuring scripts (bench_torch.py, bench_all_torch.py,
+# _verify_drive_torch.py), each in a process of its own
+# --------------------------------------------------------------------------
+
+SCRIPT_TIMEOUT_S = 600
+HEADLINE_METRIC = "flat_knn_qps_b256_1003520x768_bf16_top10"
+# bench_all_torch.py configs run here, the kernels each must launch, and
+# the quality keys with their floors (BENCH_REPORT.json's meanings)
+BENCH_CONFIGS = {
+    "1": ({"lane_topk_acc_f32"},
+          {"recall_at_10_pallas_vs_exact": AGREEMENT_MIN,
+           "recall_at_10_lane_vs_exact": AGREEMENT_MIN}),
+    "2": ({"lane_topk_acc", "lane_topk_emit"},
+          {"fast_b128_recall_at_10": AGREEMENT_MIN, "fast_b256_recall_at_10": AGREEMENT_MIN}),
+    "4": ({"lane_topk_acc"}, {"parity_recall_vs_postfilter": AGREEMENT_MIN}),
+    "5": ({"lane_topk_acc_f32", "ivf_adc"}, {}),  # in the dry run's own process
+    "7": ({"lane_topk_emit"}, {"top10_agreement_vs_bf16": 0.95}),
+}
+BENCH_TRUE = {"4": "all_hits_satisfy_predicate", "5": "dryrun_ok"}
+
+
+def _run_script(*args):
+    """stdout of one script run from this checkout; a failure raises with
+    its output."""
+    from pathlib import Path
+
+    r = subprocess.run([sys.executable, *args], cwd=Path(__file__).resolve().parent,
+                       capture_output=True, text=True, timeout=SCRIPT_TIMEOUT_S)
+    if r.returncode != 0:
+        raise AssertionError(f"phase11 {' '.join(args)}: exit {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    return r.stdout
+
+
+def _script_line(stdout, prefix="{"):
+    """The last line of a script's output that starts with `prefix`, parsed
+    (a `launches {...}` line, or the result's JSON line)."""
+    lines = [ln for ln in stdout.splitlines() if ln.startswith(prefix)]
+    if not lines:
+        raise AssertionError(f"phase11: no line starting {prefix!r} in\n{stdout[-2000:]}")
+    return json.loads(lines[-1][lines[-1].index("{"):])
+
+
+def phase_bench_scripts(tag):
+    """Phase 11: bench_torch.py (its line parsed, value > 0, K2 launched),
+    _verify_drive_torch.py ("VERIFY DRIVE OK") and bench_all_torch.py 1,
+    2, 4, 5, 7 (no error, the quality floors, the kernels each config's
+    path must launch). Returns the kernels' launches summed over the
+    children."""
+    torch.cuda.empty_cache()
+    total = {}
+
+    def add(counts, name, want):
+        missing = [k for k in want if counts.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"phase11 {name}: kernels {missing} not launched: {counts}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    out = _run_script("bench_torch.py")
+    line, counts = _script_line(out), _script_line(out, "launches ")
+    if line["metric"] != HEADLINE_METRIC or not line["value"] > 0:
+        raise AssertionError(f"phase11 bench_torch.py: {line}")
+    add(counts, "bench_torch.py", {"lane_topk_emit"})
+    print(f"phase11 bench_torch.py ({time.perf_counter() - t0:.1f} s): {json.dumps(line)}; "
+          f"launches {counts}", flush=True)
+
+    t0 = time.perf_counter()
+    out = _run_script("_verify_drive_torch.py")
+    if not out.strip().endswith("VERIFY DRIVE OK"):
+        raise AssertionError(f"phase11 _verify_drive_torch.py:\n{out[-2000:]}")
+    print(f"phase11 _verify_drive_torch.py ({time.perf_counter() - t0:.1f} s): "
+          + " | ".join(out.strip().splitlines()), flush=True)
+
+    for name, (want, floors) in BENCH_CONFIGS.items():
+        t0 = time.perf_counter()
+        out = _run_script("bench_all_torch.py", name)
+        res = _script_line(out)
+        # config 5's kernels run in the dry run's own process, which reports them
+        counts = res.get("dryrun_launches") or _script_line(out, "launches ")
+        low = {k: res[k] for k, floor in floors.items() if not res[k] >= floor}
+        if "error" in res or low or (name in BENCH_TRUE and res[BENCH_TRUE[name]] is not True):
+            raise AssertionError(f"phase11 config {name} failed or is under its floors "
+                                 f"{floors}: {res}")
+        add(counts, f"config {name}", want)
+        print(f"phase11 bench_all_torch.py {name} ({time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps(res)}; launches {counts} {tag}", flush=True)
+    return total
+
+
 def _print_ptxas(log):
     """One line per compiled kernel from nvcc -Xptxas -v: its (mangled,
     shortened) name, registers and spill bytes. Returns {name: spill
@@ -2543,6 +2647,7 @@ def main() -> int:
     shard_ivf_launches, _, shard_build_s = phase_sharded_ivf(T, IP, errs, tag)
     shard_engine_launches = phase_sharded_engine(T, IP, errs, tag)
     phase_sharded_dryrun(T, IP, tag)
+    bench_launches = phase_bench_scripts(tag)
     # launches of K1-K4 from the sharded path, each leg read after its own
     # zeroing: 10a's two meshes, 10b's two indexes, 10c's engine searches
     sharded_launches = {
@@ -2569,6 +2674,8 @@ def main() -> int:
             row["engine_launches"] = engine_launches[name]  # engine table's index object)
         if name in sharded_launches:  # phase 10: the per-stripe scans of parallel/
             row["sharded_launches"] = sharded_launches[name]
+        if bench_launches.get(name):  # phase 11: the scripts' own processes, summed
+            row["bench_launches"] = bench_launches[name]
         if product_ms is not None:  # the score product alone (cuBLAS), not the same function
             row["product_ms"] = product_ms
         if kernel_ms is not None:  # the kernel alone, device time (ms: the wrapper's call)

@@ -8,6 +8,7 @@ as dtype code 8 without ml_dtypes) and a reopen; then the sharded indexes
 and a `mesh_shape` database on a mesh of 4 CPU cells.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -212,3 +213,100 @@ def test_port_mirrors_the_reference_layout():
     assert ref - port == set()
     assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/sharded.py",
             "parallel/sharded_ivf.py"} <= port
+
+
+# The port's measuring scripts at the root and in experiments/: the same rule as the
+# package, read from the source (a nested import or an __import__ string
+# counts too), and run in an interpreter that blocks the forbidden packages.
+SCRIPTS = sorted(
+    [REPO / n for n in ("bench_torch.py", "bench_all_torch.py", "_verify_drive_torch.py",
+                        "__graft_entry_torch__.py", "chip_smoke.py")]
+    + list((REPO / "experiments").glob("*_torch.py"))
+)
+FORBIDDEN = ("jax", "jaxlib", "tostore_tpu", "ml_dtypes")
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_bench_scripts_import_no_jax_or_reference():
+    assert len(SCRIPTS) == 9, SCRIPTS
+    for path in SCRIPTS:
+        tree = ast.parse(path.read_text())
+        bad = [m for m in _imported_modules(tree) if m.split(".")[0] in FORBIDDEN]
+        assert not bad, f"{path.name}: {bad}"
+
+
+def _import_time_statements(tree):
+    """Statements that run when the module is imported: the module body
+    outside function and class bodies and the `if __name__ == "__main__"`
+    block."""
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            continue
+        if isinstance(node, ast.If) and "__main__" in ast.unparse(node.test):
+            continue
+        yield node
+        todo.extend(c for c in ast.iter_child_nodes(node) if isinstance(c, ast.stmt))
+
+
+def test_no_global_torch_state_at_import():
+    """Importing the port or a measuring script sets no process-wide torch state (TF32,
+    cudnn.benchmark, matmul precision): callers and tests own it."""
+    sources = SCRIPTS + sorted((REPO / "tostore_tpu_torch").rglob("*.py"))
+    for path in sources:
+        for node in _import_time_statements(ast.parse(path.read_text())):
+            for sub in ast.walk(node):
+                targets = (sub.targets if isinstance(sub, ast.Assign)
+                           else [sub.target] if isinstance(sub, (ast.AugAssign, ast.AnnAssign))
+                           else [])
+                for t in targets:
+                    assert not ast.unparse(t).startswith("torch.backends"), \
+                        f"{path.name}:{sub.lineno}: {ast.unparse(sub)}"
+                if isinstance(sub, ast.Call):
+                    fn = ast.unparse(sub.func)
+                    assert not fn.startswith(("torch.backends", "torch.set_float32_matmul")), \
+                        f"{path.name}:{sub.lineno}: {fn}"
+
+
+_BENCH_SCRIPT = textwrap.dedent("""
+    import importlib.abc, sys
+
+    BLOCKED = ("jax", "jaxlib", "tostore_tpu", "ml_dtypes")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import torch
+    torch.set_num_threads(1)
+    import bench_all_torch, bench_torch, _verify_drive_torch
+    res = bench_all_torch.config4_hybrid(device="cpu", n=4096, d=128)
+    assert res["all_hits_satisfy_predicate"], res
+    assert bench_torch.run("cpu")["value"] > 0
+    _verify_drive_torch.drive(device="cpu", rows=1500, tail=100)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("OK")
+""")
+
+
+def test_bench_scripts_run_without_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _BENCH_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")
