@@ -186,6 +186,32 @@ imports nothing of JAX or tostore_tpu. Phases:
      passed; each config's kernels launched: K1 f32 / K1 and K2 / K1 /
      K1 f32 and K4 / K2 int8).
 
+ 12. The engine against the JAX package's own suites, and its untried
+     entry points. (a) The nine reference suites that build vector tables
+     (test_engine, test_review_regressions, test_aux, test_txn_buffered,
+     test_surface_r4, test_durability_incremental, test_differential,
+     test_concurrency, test_storage_seam), run unchanged through their
+     shims (tests/test_torch_suite_*.py, tests/torch_suites.py) by pytest
+     in a child process with every database's corpora on cuda:0: passed,
+     failed, skipped and seconds per suite and the kernels each launched;
+     any failed case fails the phase. (b) One file database (WAL on, the
+     default config) with a flat bf16 l2 table of 250,000 x 768 rows
+     (phase 9c's depth): (i) a transaction that inserts 1,000 vector rows
+     and updates the vectors of 1,000 more, then raises: no rolled-back pk
+     may come back and every updated row is found by its old vector; the
+     same writes committed: each written row in the top-10 of its own
+     vector + N(0, 0.01), top-10 agreement with mode="exact" >= 0.999
+     over 256 queries; (ii) update_schema().rename_field("emb", "emb2"),
+     which rebuilds the vector index from the column store at the next
+     search: the count unchanged, top-10 agreement with a numpy exact
+     oracle over the column store's vectors >= 0.999, the migration's and
+     the first search's seconds; (iii) a writer process (this script with
+     --kill9-writer) that batch_inserts 1,000-row vector batches on the card
+     and is killed with SIGKILL after 5 acknowledgements: after the reopen
+     every acknowledged row is there with its vector, no pk twice,
+     check_integrity() clean, each acknowledged row in the top-10 of its
+     own vector + noise; reopen s and first search ms. K1 must launch.
+
 Prints the card's name and power limit, the torch and CUDA versions, the
 build time, a JSON line of the kernels (each with its launches on its
 path, max_abs_err, ms, plain_ms, bound_ms / bound_by computed from this
@@ -193,7 +219,8 @@ run's shapes, library_ms, null where no single PyTorch call computes the
 function, kernel_ms where the kernel alone was timed, product_ms for
 the lane scans and K3, and for K1-K4 engine_launches, their launches in
 phase 9, sharded_launches, those of phase 10, and bench_launches, those
-of phase 11's script processes summed; the six kernels, then
+of phase 11's script processes summed, suite_launches, those of
+phase 12a's child, and entry_launches, K1's in phase 12b; the six kernels, then
 their f32 forms and the IVF
 grouping pre-pass), and last `{"ok": true, ...}`. Any failure raises
 and exits non-zero.
@@ -2559,6 +2586,342 @@ def phase_bench_scripts(tag):
     return total
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the JAX package's engine suites with their corpora on the card
+# (12a), and the engine's entry points no earlier phase drives, at full
+# width (12b)
+# --------------------------------------------------------------------------
+
+# The suites that build vector tables (tests/torch_suites.py VECTOR_SUITES):
+# the other 15 run on the card exactly what they run on the CPU in tier-1.
+SUITES_ON_CARD = (
+    "test_engine", "test_review_regressions", "test_aux", "test_txn_buffered",
+    "test_surface_r4", "test_durability_incremental", "test_differential",
+    "test_concurrency", "test_storage_seam",
+)
+SUITE_TIMEOUT_S = 600
+# "cuda:0", not "cuda": some cases build meshes of 8 cells (mesh_shape=(2, 4)),
+# which the reference's suites place on 8 virtual devices of one host. The
+# device rule (models/config.py) puts cell i on cuda:i for "cuda", and every
+# cell on the one card for "cuda:0"; a single-device table is on cuda:0 either way.
+SUITE_DEVICE = "cuda:0"
+SUITE_KERNELS = ("lane_topk_acc", "lane_topk_emit", "ivf_bucket_probe", "ivf_adc",
+                 "lane_topk_acc_f32", "lane_topk_emit_f32")
+
+
+def phase_suites(tag):
+    """Phase 12a: the nine vector suites' shims under pytest in a child
+    process, with the suite device set to the card (SUITE_DEVICE;
+    tests/torch_suites.py);
+    passed, failed, skipped and seconds per suite from its junit XML, and
+    the kernel launches each suite made from the loader's launch file. A
+    failed or erroring case fails the phase. Returns the launches summed."""
+    import os
+    import re
+    import shutil
+    import tempfile
+    import xml.etree.ElementTree as ET
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    work = tempfile.mkdtemp(prefix="tostore_suites_")
+    try:
+        xml, counts = os.path.join(work, "suites.xml"), os.path.join(work, "launches.jsonl")
+        env = dict(os.environ, TOSTORE_TORCH_SUITE_DEVICE=SUITE_DEVICE,
+                   TOSTORE_TORCH_SUITE_LAUNCHES=counts)
+        shims = [f"tests/test_torch_suite_{s[len('test_'):]}.py" for s in SUITES_ON_CARD]
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p",
+                            "no:cacheprovider", "-q", f"--junitxml={xml}", *shims],
+                           cwd=root, env=env, capture_output=True, text=True,
+                           timeout=SUITE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        per = {s: {"passed": 0, "failed": 0, "skipped": 0} for s in SUITES_ON_CARD}
+        for case in ET.parse(xml).iter("testcase"):
+            suite = "test_" + re.search(r"test_torch_suite_(\w+?)(\.|$)",
+                                        case.get("classname")).group(1)
+            kids = {c.tag for c in case}
+            key = ("failed" if kids & {"failure", "error"}
+                   else "skipped" if "skipped" in kids else "passed")
+            per[suite][key] += 1
+        rows = {}
+        if os.path.exists(counts):
+            for line in open(counts):
+                row = json.loads(line)
+                rows[row["suite"]] = row
+        total = dict.fromkeys(SUITE_KERNELS, 0)
+        for suite, n in per.items():
+            row = rows.get(suite, {"seconds": float("nan"), "launches": {}})
+            launched = {k: row["launches"].get(k, 0) for k in SUITE_KERNELS}
+            for k, v in launched.items():
+                total[k] += v
+            print(f"phase12a {suite}: {n['passed']} passed, {n['failed']} failed, "
+                  f"{n['skipped']} skipped, {row['seconds']:.2f} s on {SUITE_DEVICE}; launches "
+                  f"{ {k: v for k, v in launched.items() if v} } {tag}", flush=True)
+        n_pass = sum(n["passed"] for n in per.values())
+        n_bad = sum(n["failed"] for n in per.values())
+        print(f"phase12a the nine vector suites on the card: {n_pass} passed, {n_bad} failed "
+              f"in {wall:.1f} s (child process, pytest rc {r.returncode}); launches {total} "
+              f"{tag}", flush=True)
+        if r.returncode != 0 or n_bad or n_pass == 0:
+            raise AssertionError(f"phase12a: pytest rc {r.returncode}\n{r.stdout[-6000:]}\n"
+                                 f"{r.stderr[-3000:]}")
+        return total
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+ENTRY_ROWS = ENGINE_DUR_ROWS  # 250,000: a 1M x 768 snapshot overflows the u32 frame
+ENTRY_TXN_ROWS = 1_000        # rows inserted, and rows updated, by each transaction
+ENTRY_BATCH = 1_000           # rows per batch_insert of the writer that is killed
+ENTRY_ACKS = 5                # acknowledged batches before the SIGKILL
+ENTRY_NOISE = 0.01            # std of the noise on a row's own vector as a query
+ENTRY_QUERIES = 256           # queries of the agreement checks
+ENTRY_KILL_TIMEOUT_S = 300
+
+
+def _bf16_round(x):
+    """float32 values rounded to bfloat16 (nearest even), as float32: the
+    values a bf16 corpus holds."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x7FFF) + ((u >> 16) & 1)) & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _writer_rows(i):
+    return np.random.default_rng(SEED + 1200 + i).standard_normal((ENTRY_BATCH, DIMS),
+                                                                  dtype=np.float32)
+
+
+def kill9_writer(path, first_pk, device):
+    """The child of phase 12b (iii): opens the database, then batch_inserts
+    ENTRY_BATCH-row vector batches until it is killed, printing each
+    acknowledged batch's pks."""
+    import tostore_tpu_torch as P
+
+    db = P.ToStoreTPU.open(path, device=device)
+    print("READY", db.count("docs"), flush=True)
+    pk, i = first_pk, 0
+    while True:
+        recs = [{"id": pk + j, "price": 0.5, "ts": T0_MS + pk + j, "emb2": v}
+                for j, v in enumerate(_writer_rows(i))]
+        res = db.batch_insert("docs", recs)
+        if not res.is_success:
+            print("FAILED", res, flush=True)
+            return 1
+        print("ACK", json.dumps([int(k) for k in res.success_keys]), flush=True)
+        pk, i = pk + ENTRY_BATCH, i + 1
+
+
+def _own_misses(db, field, pks, vecs, seed, forbidden=frozenset()):
+    """pks that are not in the top-10 of their own vector plus N(0,
+    ENTRY_NOISE) noise; raises if a search returns a forbidden pk."""
+    noise = np.random.default_rng(seed).normal(0, ENTRY_NOISE, vecs.shape).astype(np.float32)
+    misses = []
+    for pk, q in zip(pks, vecs + noise):
+        got = _pks(db.vector_search("docs", field, q, top_k=K))
+        if forbidden & set(got):
+            raise AssertionError(f"phase12b: a rolled-back pk came back: {forbidden & set(got)}")
+        if pk not in got:
+            misses.append(pk)
+    return misses
+
+
+def _exact_agreement(db, field, queries):
+    agree = 0
+    for q in queries:
+        agree += len(set(_pks(db.vector_search("docs", field, q, top_k=K)))
+                     & set(_pks(db.vector_search("docs", field, q, top_k=K, mode="exact"))))
+    return agree / (K * len(queries))
+
+
+class _Rollback(Exception):
+    pass
+
+
+def phase_entry_points(T, IP, tag):
+    """Phase 12b on one file database (WAL on, the default config on the
+    card) with a flat bf16 l2 table of ENTRY_ROWS x 768: (i) transactions
+    that write vectors, rolled back and then committed; (ii) a migration
+    that renames the vector field, so the index is rebuilt from the column
+    store; (iii) a writer process killed with SIGKILL mid-batch, every
+    acknowledged row read back after the reopen. Returns K1's launches."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    import tostore_tpu_torch as P
+
+    rng = np.random.default_rng(SEED + 120)
+    n_all = ENTRY_ROWS + ENTRY_TXN_ROWS + 1
+    price = rng.random(n_all)
+    ts_null = (np.arange(n_all) % TS_NULL_EVERY) == 0
+    base = np.concatenate(list(_normal_chunks(SEED + 121, ENTRY_ROWS)))
+    queries = rng.standard_normal((ENTRY_QUERIES, DIMS), dtype=np.float32)
+    path = tempfile.mkdtemp(prefix="tostore_entry_")
+    t_phase = time.perf_counter()
+    _zero_counters(T, IP)
+    try:
+        db = P.ToStoreTPU.open(path, schemas=[_engine_schema(P, "docs")], **ENGINE_OPEN_KW)
+        n, spent = _engine_ingest(db, "docs", [base], price, ts_null)
+        db.vector_search("docs", "emb", queries[0], top_k=K)  # the staged rows to the card
+
+        # (i) transactions that write vectors
+        new_pks = list(range(ENTRY_ROWS + 1, ENTRY_ROWS + ENTRY_TXN_ROWS + 1))
+        new_vecs = rng.standard_normal((ENTRY_TXN_ROWS, DIMS), dtype=np.float32)
+        upd_pks = sorted(int(p) + 1 for p in rng.choice(ENTRY_ROWS, ENTRY_TXN_ROWS,
+                                                         replace=False))
+        upd_vecs = rng.standard_normal((ENTRY_TXN_ROWS, DIMS), dtype=np.float32)
+
+        def writes():
+            res = db.batch_insert("docs", [
+                {"id": pk, "price": 0.5, "ts": T0_MS + pk, "emb": v}
+                for pk, v in zip(new_pks, new_vecs)])
+            if not res.is_success:
+                raise AssertionError(f"phase12b batch_insert in a transaction: {res}")
+            for pk, v in zip(upd_pks, upd_vecs):
+                if not db.update_by_pk("docs", pk, {"emb": v}).is_success:
+                    raise AssertionError(f"phase12b update_by_pk({pk}) in a transaction")
+
+        t0 = time.perf_counter()
+        try:
+            with db.transaction():
+                writes()
+                raise _Rollback
+        except _Rollback:
+            pass
+        rollback_s = time.perf_counter() - t0
+        gone = set(new_pks)
+        if db.count("docs") != ENTRY_ROWS or any(db.get_by_pk("docs", pk) for pk in new_pks[:50]):
+            raise AssertionError(f"phase12b after the rollback: {db.count('docs')} rows")
+        miss_new = _own_misses(db, "emb", new_pks, new_vecs, SEED + 122, forbidden=gone)
+        miss_old = _own_misses(db, "emb", upd_pks, base[np.asarray(upd_pks) - 1], SEED + 123,
+                               forbidden=gone)
+        if miss_old:
+            raise AssertionError(f"phase12b after the rollback: {len(miss_old)} updated rows "
+                                 f"not found by their old vectors: {miss_old[:5]}")
+        t0 = time.perf_counter()
+        with db.transaction():
+            writes()
+        commit_s = time.perf_counter() - t0
+        miss = (_own_misses(db, "emb", new_pks, new_vecs, SEED + 124)
+                + _own_misses(db, "emb", upd_pks, upd_vecs, SEED + 125))
+        agree = _exact_agreement(db, "emb", queries)
+        print(f"phase12b (i) transactions on {ENTRY_ROWS} x {DIMS} bf16 (file database, WAL "
+              f"on): {ENTRY_TXN_ROWS} inserts + {ENTRY_TXN_ROWS} vector updates rolled back in "
+              f"{rollback_s:.2f} s (no rolled-back pk returned in {2 * ENTRY_TXN_ROWS} "
+              f"searches, every updated row found by its old vector), committed in "
+              f"{commit_s:.2f} s; {len(miss)} of {2 * ENTRY_TXN_ROWS} written rows outside "
+              f"the top-{K} of their own vector + N(0, {ENTRY_NOISE}); top-{K} agreement with "
+              f"mode='exact' {agree} over {ENTRY_QUERIES} queries {tag}", flush=True)
+        if miss or agree < AGREEMENT_MIN or db.count("docs") != ENTRY_ROWS + ENTRY_TXN_ROWS:
+            raise AssertionError(f"phase12b after the commit: misses {miss[:5]}, agreement "
+                                 f"{agree}, {db.count('docs')} rows")
+
+        # (ii) a migration that rebuilds the vector index from the column store
+        before = db.count("docs")
+        t0 = time.perf_counter()
+        res = db.update_schema("docs").rename_field("emb", "emb2").execute()
+        migrate_s = time.perf_counter() - t0
+        if res.is_error:
+            raise AssertionError(f"phase12b migration: {res}")
+        t0 = time.perf_counter()
+        db.vector_search("docs", "emb2", queries[0], top_k=K)
+        first_s = time.perf_counter() - t0
+        table = db.engine._table("docs")
+        vi = table.vector_index_for("emb2")
+        store = table.store
+        pks = np.asarray(store.pks(), np.int64)
+        rows = np.asarray([store.rowid(int(pk)) for pk in pks])
+        # the index's own function of the stored values: bf16 rows and
+        # queries in the product, the squared norms of the f32 rows
+        col = np.stack(store.columns["emb2"].data[rows]).astype(np.float32)
+        sq = np.einsum("ij,ij->i", col, col)
+        score = sq[None, :] - 2 * (_bf16_round(queries) @ _bf16_round(col).T)
+        want = pks[np.argsort(score, axis=1, kind="stable")[:, :K]]
+        agree = sum(len(set(_pks(db.vector_search("docs", "emb2", q, top_k=K))) & set(w.tolist()))
+                    for q, w in zip(queries, want)) / (K * ENTRY_QUERIES)
+        print(f"phase12b (ii) migration rename_field('emb', 'emb2'): {migrate_s:.2f} s; the "
+              f"first search, which re-ingests {len(vi.corpus)} vectors from the column store "
+              f"onto {vi.corpus.vectors.device}: {first_s:.2f} s; count {db.count('docs')} "
+              f"(before {before}); top-{K} agreement with a numpy exact oracle over the column "
+              f"store's vectors (bf16 products, f32 norms) {agree} over {ENTRY_QUERIES} queries {tag}",
+              flush=True)
+        if (db.count("docs") != before or len(vi.corpus) != before or agree < AGREEMENT_MIN
+                or "emb" in table.vector_indexes):
+            raise AssertionError(f"phase12b after the migration: {db.count('docs')} rows, "
+                                 f"corpus {len(vi.corpus)}, agreement {agree}")
+        db.close()
+        del db, table, vi, store, col
+
+        # (iii) SIGKILL of a writer process; every acknowledged row survives
+        first_pk = ENTRY_ROWS + ENTRY_TXN_ROWS + 1
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--kill9-writer", path,
+               str(first_pk), ENGINE_OPEN_KW.get("device", "cuda")]
+        with tempfile.TemporaryFile("w+") as err, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=err, text=True,
+                cwd=Path(__file__).resolve().parent) as proc:
+            watchdog = threading.Timer(ENTRY_KILL_TIMEOUT_S, proc.kill)
+            watchdog.start()
+            try:
+                lines = [proc.stdout.readline()]
+                while len(lines) <= ENTRY_ACKS and lines[-1].startswith(("READY", "ACK")):
+                    lines.append(proc.stdout.readline())
+                os.kill(proc.pid, signal.SIGKILL)
+                proc.wait()
+                lines += proc.stdout.read().splitlines(keepends=True)
+            finally:
+                watchdog.cancel()
+                proc.kill()  # a no-op once it is dead; stops it if a read raised
+            err.seek(0)
+            if (not lines[0].startswith("READY") or int(lines[0].split()[1]) != before
+                    or not all(ln.startswith("ACK") for ln in lines[1 : ENTRY_ACKS + 1])):
+                raise AssertionError(f"phase12b writer: {lines[: ENTRY_ACKS + 1]}\n"
+                                     f"{err.read()[-3000:]}")
+        acked = [pk for ln in lines if ln.startswith("ACK") and ln.endswith("\n")
+                 for pk in json.loads(ln[4:])]
+        acked_vecs = np.concatenate([_writer_rows(i) for i in range(len(acked) // ENTRY_BATCH)])
+        if acked != list(range(first_pk, first_pk + len(acked))):
+            raise AssertionError("phase12b writer: acknowledged pks out of order")
+        t0 = time.perf_counter()
+        db = P.ToStoreTPU.open(path, **ENGINE_OPEN_KW)
+        reopen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        db.vector_search("docs", "emb2", acked_vecs[0], top_k=K)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        lost = [pk for pk, v in zip(acked, acked_vecs)
+                if (r := db.get_by_pk("docs", pk)) is None
+                or not np.array_equal(np.asarray(r["emb2"], np.float32), v)]
+        ids = [r["id"] for r in db.query("docs").select("id").limit(10**9).no_cache()
+               .fetch().records]
+        chk = db.check_integrity()
+        miss = _own_misses(db, "emb2", acked, acked_vecs, SEED + 126)
+        n_rows = db.count("docs")
+        print(f"phase12b (iii) SIGKILL after {len(acked) // ENTRY_BATCH} acknowledged batches "
+              f"of {ENTRY_BATCH} (writer on {ENGINE_OPEN_KW.get('device', 'cuda')}): reopen "
+              f"{reopen_s:.2f} s, first search {first_ms:.1f} ms; {n_rows} rows ({before} + "
+              f"{n_rows - before} written, {len(acked)} acknowledged), {len(lost)} acknowledged "
+              f"rows lost or changed, {len(ids) - len(set(ids))} duplicate pks, integrity "
+              f"errors {chk.get('errors')}, {len(miss)} acknowledged rows outside the top-{K} "
+              f"of their own vector + noise {tag}", flush=True)
+        if (lost or len(ids) != len(set(ids)) or len(ids) != n_rows or chk.get("errors")
+                or miss or n_rows < before + len(acked)):
+            raise AssertionError(f"phase12b after the kill: lost {lost[:5]}, misses {miss[:5]}, "
+                                 f"{chk}")
+        db.close()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    k1 = T.LAUNCHES["lane_topk_acc"]
+    print(f"phase12b launches: K1 {k1} (every search above: the table is past MIN_FUSED_N "
+          f"= {T.MIN_FUSED_N}); the phase took {time.perf_counter() - t_phase:.1f} s {tag}",
+          flush=True)
+    if k1 <= 0:
+        raise AssertionError("phase12b: K1 never launched")
+    return {"lane_topk_acc": k1}
+
+
 def _print_ptxas(log):
     """One line per compiled kernel from nvcc -Xptxas -v: its (mangled,
     shortened) name, registers and spill bytes. Returns {name: spill
@@ -2585,6 +2948,8 @@ def _print_ptxas(log):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--kill9-writer"]:  # phase 12b's child process
+        return kill9_writer(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     from tostore_tpu_torch.ops import _kernels
@@ -2648,6 +3013,8 @@ def main() -> int:
     shard_engine_launches = phase_sharded_engine(T, IP, errs, tag)
     phase_sharded_dryrun(T, IP, tag)
     bench_launches = phase_bench_scripts(tag)
+    suite_launches = phase_suites(tag)
+    entry_launches = phase_entry_points(T, IP, tag)
     # launches of K1-K4 from the sharded path, each leg read after its own
     # zeroing: 10a's two meshes, 10b's two indexes, 10c's engine searches
     sharded_launches = {
@@ -2676,6 +3043,10 @@ def main() -> int:
             row["sharded_launches"] = sharded_launches[name]
         if bench_launches.get(name):  # phase 11: the scripts' own processes, summed
             row["bench_launches"] = bench_launches[name]
+        if name in suite_launches:  # phase 12a: the nine vector suites' child process
+            row["suite_launches"] = suite_launches[name]
+        if name in entry_launches:  # phase 12b: transactions, migration, SIGKILL recovery
+            row["entry_launches"] = entry_launches[name]
         if product_ms is not None:  # the score product alone (cuBLAS), not the same function
             row["product_ms"] = product_ms
         if kernel_ms is not None:  # the kernel alone, device time (ms: the wrapper's call)

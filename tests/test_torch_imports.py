@@ -10,6 +10,7 @@ and a `mesh_shape` database on a mesh of 4 CPU cells.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -310,3 +311,109 @@ def test_bench_scripts_run_without_jax_or_reference():
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+# The JAX package's own test suites on the port: every reference test file
+# either runs unchanged through tests/torch_suites.py (one shim each) or is
+# named in its CARRIED_BY table with the port tests that carry it, so that a
+# suite added later cannot be forgotten.
+TESTS = REPO / "tests"
+
+
+def _shim_suites():
+    """{shim file name: the suite its load() call names}."""
+    out = {}
+    for path in sorted(TESTS.glob("test_torch_suite_*.py")):
+        calls = [n for n in ast.walk(ast.parse(path.read_text()))
+                 if isinstance(n, ast.Call) and getattr(n.func, "id", None) == "load"]
+        assert len(calls) == 1, path.name
+        out[path.name] = calls[0].args[0].value
+    return out
+
+
+def test_every_reference_suite_has_a_shim_or_carrier():
+    import torch_suites as ts
+
+    ref = {p.stem for p in TESTS.glob("test_*.py") if not p.name.startswith("test_torch_")}
+    shims = _shim_suites()
+    assert {f"test_torch_suite_{s[len('test_'):]}.py": s for s in ts.SUITES} == shims
+    assert set(ts.SUITES).isdisjoint(ts.CARRIED_BY)
+    assert ref == set(ts.SUITES) | set(ts.CARRIED_BY), ref ^ (set(ts.SUITES) | set(ts.CARRIED_BY))
+    # the suites that build vector tables are the ones the smoke runs on the card
+    vector = re.compile(r"DataType\.vector|VectorIndex|vector_search")
+    assert set(ts.VECTOR_SUITES) == {s for s in ts.SUITES
+                                     if vector.search((TESTS / f"{s}.py").read_text())}
+    for carriers in ts.CARRIED_BY.values():
+        assert all((TESTS / f).is_file() for f in carriers), carriers
+
+
+def test_excluded_cases_exist_and_have_hand_counterparts():
+    import torch_suites as ts
+
+    def cases(path):
+        tree = ast.parse(path.read_text())
+        out = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+        for cls in (n for n in tree.body if isinstance(n, ast.ClassDef)):
+            out |= {f"{cls.name}::{f.name}" for f in cls.body if isinstance(f, ast.FunctionDef)}
+        return out
+
+    for suite, excluded in ts.EXCLUDED.items():
+        assert suite in ts.SUITES
+        ref = cases(TESTS / f"{suite}.py")
+        shim = cases(TESTS / f"test_torch_suite_{suite[len('test_'):]}.py")
+        for case, (reason, replacement) in excluded.items():
+            assert case in ref and reason, case
+            assert replacement in shim, replacement
+
+
+def test_suite_loader_and_shims_import_no_jax_or_reference():
+    for path in [TESTS / "torch_suites.py", *sorted(TESTS.glob("test_torch_suite_*.py"))]:
+        tree = ast.parse(path.read_text())
+        bad = [m for m in _imported_modules(tree) if m.split(".")[0] in FORBIDDEN]
+        assert not bad, f"{path.name}: {bad}"
+
+
+def test_suite_rewrite_raises_on_leftover_jax():
+    import pytest
+    import torch_suites as ts
+
+    src = "import jax\njax.config.update('jax_platforms', 'cpu')\nfrom tostore_tpu import X\n"
+    assert ts.rewrite("t", src, "cpu") == "pass\npass\nfrom tostore_tpu_torch import X\n"
+    with pytest.raises(RuntimeError, match="refers to JAX"):
+        ts.rewrite("t", "import jax.numpy as jnp\n", "cpu")
+    with pytest.raises(RuntimeError, match="refers to JAX"):
+        ts.rewrite("t", "x = jnp.zeros(3)\n", "cpu")
+
+
+def test_suite_device_is_test_only(monkeypatch):
+    import pytest
+    import torch_suites as ts
+
+    from tostore_tpu_torch.models.config import DataStoreConfig
+
+    monkeypatch.delenv(ts.DEVICE_VAR, raising=False)
+    assert ts.suite_device() == "cpu"
+    if not torch.cuda.is_available():
+        monkeypatch.setenv(ts.DEVICE_VAR, "cuda")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ts.suite_device()
+    undo = ts.set_default_device("cpu")
+    try:
+        assert DataStoreConfig().device == "cpu"
+        assert DataStoreConfig(device="meta").device == "meta"
+    finally:
+        undo()
+    assert DataStoreConfig().device == "cuda"
+    for path in (REPO / "tostore_tpu_torch").rglob("*.py"):
+        assert ts.DEVICE_VAR not in path.read_text(), path
+
+
+def test_smoke_runs_the_vector_suites_on_the_card():
+    """chip_smoke.py phase 12a runs exactly the loader's vector suites (it
+    does not import the loader, which sets torch's thread count)."""
+    import torch_suites as ts
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    value = next(n.value for n in tree.body if isinstance(n, ast.Assign)
+                 and [ast.unparse(t) for t in n.targets] == ["SUITES_ON_CARD"])
+    assert ast.literal_eval(value) == ts.VECTOR_SUITES

@@ -1,0 +1,6 @@
+"""The JAX package's tests/test_aux.py, run unchanged on the port
+(tests/torch_suites.py says how)."""
+
+from torch_suites import load
+
+load("test_aux", globals())

@@ -244,6 +244,10 @@ class Replicated:
     def numpy(self) -> np.ndarray:
         return self.local.cpu().numpy()
 
+    def __array__(self, dtype=None, copy=None):
+        # np.asarray of a replicated jax Array is its value; so here
+        return self.numpy().astype(dtype, copy=False) if dtype else self.numpy()
+
 
 class Striped:
     """A [shard * rows, ...] array as per-cell tensors: cell (dp index,
@@ -256,6 +260,11 @@ class Striped:
         self.mesh = mesh
         self.parts = parts  # {(dp index, shard): tensor} for the owned cells
         self.rows = next(iter(parts.values())).shape[0]
+
+    def __array__(self, dtype=None, copy=None):
+        # np.asarray of a sharded jax Array gathers the global value; so here
+        x = read_to_host(self)
+        return x.astype(dtype, copy=False) if dtype else x
 
     @classmethod
     def full(cls, mesh: Mesh, rows: int, tail: tuple, fill, dtype) -> "Striped":
