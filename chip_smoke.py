@@ -36,7 +36,9 @@ imports nothing of JAX or tostore_tpu. Phases:
      top-k included), kernel beside plain version, for each B, with the
      kernel's own device time (torch.profiler), the bound (bytes over 3.35
      TB/s or FLOPs over 989 TFLOP/s, H100 SXM data sheet), the share of
-     it, and `product_ms`: torch.mm of the same [B, 768] x [768, N] score
+     it, the call again with its tie check deferred to the caller's
+     readback (`deferred_tie_check`, as search_arrays runs it), and
+     `product_ms`: torch.mm of the same [B, 768] x [768, N] score
      product alone (cuBLAS; not the same function, no single PyTorch call
      computes the lane top-k); at B = 256 also the plain lane scan and
      mode="exact"; the f32 FMA K1 / K2 the same on the f32 index (B = 8,
@@ -212,6 +214,33 @@ imports nothing of JAX or tostore_tpu. Phases:
      check_integrity() clean, each acknowledged row in the top-10 of its
      own vector + noise; reopen s and first search ms. K1 must launch.
 
+ 13. Ties at full width (run after phase 8, on phase 6's IVF indexes; 13e
+     after phase 10d). Every selection breaks exactly equal scores as the
+     reference does (ops/topk.py `top_k_first`). A separate 1,048,576-slot
+     bf16 l2 index (1,000,000 seeded rows) with one row copied to other
+     lanes of its block, to its lane in 11 other blocks (two a block:
+     more than T = 16 equal candidates in one lane; on both sides of K1's
+     split boundaries and in both halves of K2's 4,096-row blocks) and to
+     far blocks; an int8 and an f32 index of 250,000 rows with the same
+     copies; 25 copies of one row appended to the raw and M = 192 IVF
+     indexes. (a) Whether the copies score bit-identically in each
+     kernel's raw candidates (K1, K2, K5, K1 int8 / f32, K3, K4, and the
+     plain torch.mm); a route where they do not is named on a line. (b)
+     With every counter zeroed: search_arrays at B = 1, 8, 32 (K1) and 256
+     auto and fused (K2) on the bf16 index, B = 8 and 256 on the int8 and
+     f32 ones, K5 and K6 at B = 256 (bf16, f32), IVF probe B = 8 (K3, K4);
+     every kernel must launch. (c) Each route against its plain version on
+     the same tensors: the same hits in the same order, no tolerance on
+     order (scores within the dtype's); search_arrays' slots are the
+     kernel's; the IVF probes against the same search with K3 / K4's plain
+     versions swapped in. (d) The final top-10 over K2's [256, 65,536]
+     candidates: `_topk_pad` (torch.topk of k + 1, its tie check, the
+     exact reselect of rows with ties) beside torch.topk alone, on the
+     copied rows (every row has ties: the reselect) and on random scores;
+     and the exact form over all keys. (e) One (1, 4) sharded B = 8 call
+     with copies in all 4 stripes against the same call through K1's
+     plain version.
+
 Prints the card's name and power limit, the torch and CUDA versions, the
 build time, a JSON line of the kernels (each with its launches on its
 path, max_abs_err, ms, plain_ms, bound_ms / bound_by computed from this
@@ -220,7 +249,8 @@ function, kernel_ms where the kernel alone was timed, product_ms for
 the lane scans and K3, and for K1-K4 engine_launches, their launches in
 phase 9, sharded_launches, those of phase 10, and bench_launches, those
 of phase 11's script processes summed, suite_launches, those of
-phase 12a's child, and entry_launches, K1's in phase 12b; the six kernels, then
+phase 12a's child, entry_launches, K1's in phase 12b, and tie_launches, those
+of phase 13b; the six kernels, then
 their f32 forms and the IVF
 grouping pre-pass), and last `{"ok": true, ...}`. Any failure raises
 and exits non-zero.
@@ -579,6 +609,13 @@ def _pairs(idx, qt, b, T):
             product)
 
 
+def _deferred(fn, T):
+    def call():
+        with T.deferred_tie_check():
+            return fn()
+    return call
+
+
 def _pair_bound(idx, b, T):
     """Bound of K1 (B <= 32: its [B, T*128] lists) or K2 (its [B, n_blocks
     * 256] candidates at blk_n 4096) on the index's corpus."""
@@ -657,6 +694,9 @@ def phase_main_kernels(idxs, side, queries, T, errs):
     for b in TIMED_B:
         qt, _, _ = idx._prep_queries(queries[b])
         pair = _pairs(idx, qt, b, T)
+        # the wrapper's call with its tie check left to the caller's readback,
+        # as search_arrays runs it (`deferred_tie_check`; no sync inside)
+        pair = pair[:1] + (("deferred", _deferred(pair[0][1], T)),) + pair[1:]
         # kernel, plain, ..., plain, kernel: each measured twice in turns
         order = list(pair) + list(reversed(pair))
         for name, fn in order:
@@ -2922,6 +2962,357 @@ def phase_entry_points(T, IP, tag):
     return {"lane_topk_acc": k1}
 
 
+# --------------------------------------------------------------------------
+# Phase 13: ties at full width. Exactly equal scores (copied rows) on every
+# route, each kernel's result equal to its plain version's in hits and
+# order. Runs after phase 8, on phase 6's IVF indexes; 13e after phase 10d.
+# --------------------------------------------------------------------------
+
+TIE_SRC = 5 * 128 + 37       # the copied row's slot: block 0, lane 37
+TIE_SIDE_ROWS = SIDE_ROWS    # the int8 and f32 indexes of the phase
+TIE_B = (1, 8, 32, 256)
+TIE_COPIES = 24              # copies appended to each IVF index
+TIE_NOISE = 0.01             # query = the copied row + N(0, TIE_NOISE^2) a dimension
+
+
+def _tie_slots(capacity):
+    """The slots that take copies of TIE_SRC's row: other lanes of its
+    block; its own lane in other 2,048-row blocks, two copies a block, so
+    that more than T = 16 equal candidates reach its K1 lists, on both
+    sides of K1's split boundaries (4 blocks a split at 1,048,576 slots on
+    132 SMs) and in both halves of K2's 4,096-row blocks; three lanes of
+    two far blocks. Those below `capacity`."""
+    lane = TIE_SRC % 128
+    slots = [TIE_SRC + j for j in (1, 2, 3, 90)]
+    slots += [blk * 2048 + r * 128 + lane for blk in (1, 3, 4, 7, 8, 9, 64, 100, 255, 256, 511)
+              for r in (0, 7)]
+    slots += [blk * 2048 + other for blk in (4, 300) for other in (0, 64, 127)]
+    return [s for s in slots if s < capacity]
+
+
+def _stored_row(idx, slot):
+    """The row as the corpus holds it, in f32 (bf16 and int8 * scale are
+    exact there): upserting it again stores the same bits and norm."""
+    c = idx.corpus
+    x = c.vectors[slot].float()
+    if c.scales is not None:
+        x = x * c.scales[slot]
+    return x[:DIMS].cpu().numpy()
+
+
+def _copy_row(idx, src_slot, slots):
+    """Upsert the stored row of src_slot under its own pk and the pks of
+    the live `slots` (each keeps its slot). -> (slots with the row, row)."""
+    c = idx.corpus
+    live = c.valid[torch.tensor(slots, device=c.device)].cpu().numpy()
+    slots = [src_slot] + [s for s, ok in zip(slots, live) if ok]
+    row = _stored_row(idx, src_slot)
+    idx.upsert([c._slot_pks[s] for s in slots], np.repeat(row[None], len(slots), 0))
+    return slots, row
+
+
+def _tie_queries(row, b, seed):
+    rng = np.random.default_rng(seed)
+    return (row[None] + rng.standard_normal((b, DIMS), dtype=np.float32)
+            * np.float32(TIE_NOISE)).astype(np.float32)
+
+
+def _tie_equal(label, got, want, tol):
+    """Kernel route (got) against its plain version (want), both (scores,
+    rows) [B, k]: the same hits in the same order, no tolerance on order;
+    scores within tol of max(1, |score|). -> max |score diff|."""
+    ks, ki = (np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t) for t in got)
+    ps, pi = (np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t) for t in want)
+    ks, ps = ks.astype(np.float64), ps.astype(np.float64)
+    err = np.abs(ks - ps)
+    if (err > tol * np.maximum(1.0, np.abs(ps))).any():
+        raise AssertionError(f"{label}: scores differ beyond {tol}: {err.max()}")
+    hit = ps > NEG_INF / 2
+    if not np.array_equal(ks > NEG_INF / 2, hit):
+        raise AssertionError(f"{label}: the misses differ")
+    bad = [b for b in range(ps.shape[0]) if ki[b][hit[b]].tolist() != pi[b][hit[b]].tolist()]
+    if bad:
+        b = bad[0]
+        raise AssertionError(f"{label}: {len(bad)} rows differ in hits or order; row {b}: "
+                             f"{ki[b].tolist()} against plain {pi[b].tolist()}")
+    return float(err.max()) if err.size else 0.0
+
+
+def _bits_equal(scores, rows, tied):
+    """Whether every candidate of `tied` rows carries one bit pattern per
+    leading row: scores / rows [B, ...] (a kernel's raw candidates, by
+    query, or by probed bucket)."""
+    s = scores.reshape(scores.shape[0], -1).float()
+    r = rows.reshape(rows.shape[0], -1).long()
+    mask = torch.isin(r, torch.tensor(sorted(tied), device=r.device)) & (s > NEG_INF / 2)
+    if not bool(mask.any()):
+        return None
+    hi = torch.where(mask, s, torch.full_like(s, -float("inf"))).max(1).values
+    lo = torch.where(mask, s, torch.full_like(s, float("inf"))).min(1).values
+    some = mask.any(1)
+    return bool(torch.equal(hi[some].view(torch.int32), lo[some].view(torch.int32)))
+
+
+def _tie_flat_index(dev):
+    """The phase's 1,048,576-slot bf16 l2 index (phase 2's capacity): rows
+    from a seeded torch generator, 1,000,000 of them, then TIE_SRC's row
+    copied to `_tie_slots`."""
+    from tostore_tpu_torch import FlatVectorIndex
+
+    g = torch.Generator().manual_seed(SEED + 13)
+    idx = FlatVectorIndex(DIMS, "l2", "bfloat16", device=dev)
+    chunk = min(125_000, N_ROWS)
+    for off in range(0, N_ROWS, chunk):
+        idx.upsert(range(off, off + chunk), torch.randn((chunk, DIMS), generator=g).numpy())
+    return idx
+
+
+def _tie_side_indexes(dev):
+    """An int8 and an f32 l2 index of TIE_SIDE_ROWS seeded rows."""
+    from tostore_tpu_torch import FlatVectorIndex
+
+    g = torch.Generator().manual_seed(SEED + 14)
+    x = torch.randn((TIE_SIDE_ROWS, DIMS), generator=g).numpy()
+    side = {}
+    for p in ("int8", "float32"):
+        side[p] = FlatVectorIndex(DIMS, "l2", p, device=dev)
+        side[p].upsert(range(TIE_SIDE_ROWS), x)
+    return side
+
+
+def _plain_route(idx, q, b, T):
+    """The plain version of the fused route the kernel takes at B, on the
+    index's own tensors (K1 to 32 queries, K2 above at 4,096-row blocks)."""
+    qt, _, _ = idx._prep_queries(q)
+    return _pairs(idx, qt, b, T)[1][1]()
+
+
+def phase_ties(dev, ivf_idxs, T, IP, errs, tag):
+    """Phase 13a-d: the flat bf16, int8 and f32 routes (K1, K2 through auto
+    and fused, K5, K6) and the IVF raw and PQ probes (K3, K4) on copied
+    rows, against their plain versions, exactly; launches with the counters
+    zeroed; the merge's time at [256, 65,536] beside torch.topk's."""
+    from tostore_tpu_torch.vector import ivf as ivf_mod
+
+    t_phase = time.perf_counter()
+    flat = _tie_flat_index(dev)
+    side = _tie_side_indexes(dev)
+    copies = {"bf16": _copy_row(flat, TIE_SRC, _tie_slots(flat.corpus.capacity))}
+    for p, idx in side.items():
+        copies[p] = _copy_row(idx, TIE_SRC, _tie_slots(TIE_SIDE_ROWS))
+    ivf_copies = {}
+    for name in ("raw", "pq192"):
+        idx = ivf_idxs[name]
+        src = idx.corpus._pk_slot[IVF_N]  # the first appended row of phase 6
+        row = _stored_row(idx, src)
+        pks = [IVF_N] + [3 * IVF_N + j for j in range(TIE_COPIES)]
+        ivf_copies[name] = (idx.upsert(pks, np.repeat(row[None], len(pks), 0)), row)
+    _sync()
+    print(f"phase13 built: bf16 l2 {N_ROWS} rows (capacity {flat.corpus.capacity}), int8 and "
+          f"f32 {TIE_SIDE_ROWS}; copies of one row: bf16 {len(copies['bf16'][0])}, int8 "
+          f"{len(copies['int8'][0])}, f32 {len(copies['float32'][0])}, IVF raw / pq192 "
+          f"{TIE_COPIES + 1} each; {time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
+
+    flats = {"bf16": flat, **side}
+    queries = {name: {b: _tie_queries(copies[name][1], b, SEED + 30 + b) for b in TIE_B}
+               for name in flats}
+    ivf_q = {name: _tie_queries(row, 8, SEED + 40) for name, (_, row) in ivf_copies.items()}
+
+    # --- 13a: duplicate rows score bit-identically? (the kernels' raw candidates)
+    bits = {}
+    c = flat.corpus.vectors
+    bias, alpha, _ = flat._bias_alpha(None)
+    tied = set(copies["bf16"][0])
+    for b in (8, 256):
+        qt, _, _ = flat._prep_queries(queries["bf16"][b])
+        blk_n, blk_b, t_cands, emit = T._acc_plan(qt, c, K, None)
+        qp = T._pad_queries(qt, blk_b if not emit else min(T.MAX_BLK_B, -(-b // 8) * 8), c.dtype)
+        if emit:
+            bits["K2 (lane_topk_emit)"] = _bits_equal(
+                *T._lane_topk_emit_cuda(qp, c, bias, None, alpha, blk_n), tied)
+            bits["plain, torch.mm"] = _bits_equal(
+                *T._block_cands_plain(qp, c, bias, None, alpha, blk_n), tied)
+            qg = T._pad_queries(qt, T._group_plan(qt, c, BLK_N, None)[0], c.dtype)
+            bits["K5 (lane_topk_group)"] = _bits_equal(*T._lane_topk_group_cuda(
+                qg, c, bias, None, alpha, BLK_N, T._group_plan(qt, c, BLK_N, None)[1]), tied)
+        else:
+            bits["K1 (lane_topk_acc)"] = _bits_equal(
+                *T._lane_topk_acc_cuda(qp, c, bias, None, alpha, blk_n, t_cands), tied)
+    for p in ("int8", "float32"):
+        idx = side[p]
+        qt, _, _ = idx._prep_queries(queries[p][8])
+        sbias, salpha, sscale = idx._bias_alpha(None)
+        blk_n, blk_b, t_cands, _ = T._acc_plan(qt, idx.corpus.vectors, K, None)
+        qp = T._pad_queries(qt, blk_b, idx.corpus.vectors.dtype)
+        bits[f"K1 {p}"] = _bits_equal(*T._lane_topk_acc_cuda(
+            qp, idx.corpus.vectors, sbias, sscale, salpha, blk_n, t_cands), set(copies[p][0]))
+    for name, idx in ivf_idxs.items():
+        if name not in ivf_copies:
+            continue
+        a = _probe_args(idx, ivf_q[name], IP)
+        slots = idx.buckets_slots[a["probe"]]
+        cap = slots.shape[-1]
+        # per probed bucket: copies placed in other clusters' slices carry
+        # other PQ codes (residuals of another centroid)
+        bits[("K3 (ivf_bucket_probe)" if name == "raw" else "K4 (ivf_adc)")] = _bits_equal(
+            a["kernel"]().reshape(-1, cap), slots.reshape(-1, cap),
+            set(ivf_copies[name][0].tolist()))
+    _zero_counters(T, IP)
+    exact_bits = all(v is not False for v in bits.values())
+    print("phase13a duplicated rows score bit-identically (each route's raw candidates): "
+          + ", ".join(f"{k} {'yes' if v else ('no' if v is False else 'not seen')}"
+                      for k, v in bits.items()), flush=True)
+    if not exact_bits:
+        print("phase13a duplicated rows do NOT all score bit-identically on this card: the "
+              "routes marked no break their ties by those score differences, and their "
+              "kernel-vs-plain comparison below still asks for equal hits in equal order",
+              flush=True)
+
+    # --- 13b: the routes, with every counter zeroed just before
+    got = {}
+    _zero_counters(T, IP)
+    for name, idx in flats.items():
+        for b in TIE_B:
+            if name != "bf16" and b not in (8, 256):
+                continue
+            got[name, b, "auto"] = idx.search_arrays(queries[name][b], K, mode="auto")
+            if b == 256:
+                got[name, b, "fused"] = idx.search_arrays(queries[name][b], K, mode="fused")
+        if name in ("bf16", "float32"):
+            qt, _, _ = idx._prep_queries(queries[name][256])
+            ibias, ialpha, _ = idx._bias_alpha(None)
+            cv = idx.corpus.vectors
+            got[name, "K5"] = T._fused_group_emit(qt, cv, ibias, k=K, alpha=ialpha, blk_n=BLK_N)
+            got[name, "K6"] = T.pipe_topk(qt, cv, ibias, k=K, alpha=ialpha)
+    for name in ivf_copies:
+        got["ivf", name] = ivf_idxs[name].search_arrays(ivf_q[name], K, mode="probe")
+    _sync()
+    launches = {**T.LAUNCHES, **{k: v for k, v in IP.LAUNCHES.items()}}
+    print(f"phase13b launches on the ties path: {launches} (a flat search_arrays whose "
+          f"deferred tie check finds equal scores at the cut, as every one on these copies "
+          f"does, runs its scan again with the check inline) {tag}", flush=True)
+    for key, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"phase13b: kernel {key} was not launched on the ties path")
+
+    # --- 13c: each route against its plain version, hits and order
+    checked = 0
+    for name, idx in flats.items():
+        dtype = idx.corpus.vectors.dtype
+        kname = "_f32" if dtype == torch.float32 else ""
+        for (gname, b, mode) in [k for k in got if k[0] == name and len(k) == 3]:
+            qt, _, _ = idx._prep_queries(queries[name][b])
+            (kernel, kernel_fn), (_, plain_fn) = _pairs(idx, qt, b, T)[:2]
+            kernel += kname
+            ks, ki = kernel_fn()
+            err = _tie_equal(f"phase13c {name} B={b} {kernel}", (ks, ki), plain_fn(), TOL[dtype])
+            errs[kernel] = max(errs[kernel], err)
+            # the index's answer is the kernel's: its slots (misses -1), in order
+            _, slots, _ = got[gname, b, mode]
+            want = torch.where(ks > NEG_INF / 2, ki, torch.full_like(ki, -1)).cpu().numpy()
+            if not np.array_equal(slots, want):
+                raise AssertionError(f"phase13c {name} {mode} B={b}: search_arrays' slots "
+                                     f"{slots[0].tolist()} are not the kernel's {want[0].tolist()}")
+            checked += 1
+            print(f"phase13c {name} {mode} B={b} ({kernel}): hits and order equal to plain; "
+                  f"first row {slots[0].tolist()}", flush=True)
+        if (name, "K5") in got:
+            qt, _, _ = idx._prep_queries(queries[name][256])
+            ibias, ialpha, _ = idx._bias_alpha(None)
+            cv = idx.corpus.vectors
+            for key, plain in (("K5", lambda: T._fused_group_emit_plain(
+                                    qt, cv, ibias, k=K, alpha=ialpha, blk_n=BLK_N)),
+                               ("K6", lambda: T._pipe_topk_plain(qt, cv, ibias, k=K,
+                                                                 alpha=ialpha))):
+                kernel = {"K5": "lane_topk_group", "K6": "lane_topk_group_pipe"}[key] + kname
+                err = _tie_equal(f"phase13c {name} {key}", got[name, key], plain(), TOL[dtype])
+                errs[kernel] = max(errs[kernel], err)
+                checked += 1
+    plain_fns = {"raw": ("bucket_probe_scores", IP._bucket_probe_scores_plain),
+                 "pq192": ("adc_bucket_scores", IP._adc_bucket_scores_plain)}
+    for name in ivf_copies:
+        attr, plain = plain_fns[name]
+        kernel_fn = getattr(ivf_mod, attr)
+        setattr(ivf_mod, attr, plain)
+        try:
+            want = ivf_idxs[name].search_arrays(ivf_q[name], K, mode="probe")
+        finally:
+            setattr(ivf_mod, attr, kernel_fn)
+        _sync()
+        dist, slots, _ = got["ivf", name]
+        kernel = "ivf_bucket_probe" if name == "raw" else "ivf_adc"
+        if not np.array_equal(slots, want[1]):
+            raise AssertionError(f"phase13c IVF {name}: slots {slots[0].tolist()} against plain "
+                                 f"{want[1][0].tolist()}")
+        # l2 distances through their squares, which carry the scores' error
+        lim = TOL[torch.bfloat16] * np.maximum(1.0, np.sum(ivf_q[name] ** 2, axis=1))[:, None]
+        if (np.abs(dist.astype(np.float64) ** 2 - want[0].astype(np.float64) ** 2) > lim).any():
+            raise AssertionError(f"phase13c IVF {name}: distances differ from plain")
+        hit = set(slots[0].tolist())
+        if not hit <= set(ivf_copies[name][0].tolist()):
+            raise AssertionError(f"phase13c IVF {name}: a hit that is no copy: {slots[0]}")
+        checked += 1
+        print(f"phase13c IVF {name} probe B=8 ({kernel}): hits and order equal to plain; "
+              f"first row {slots[0].tolist()}", flush=True)
+
+    # --- 13d: the merge at [256, 65,536] (K2's candidates at 1M rows, B = 256)
+    qt, _, _ = flat._prep_queries(queries["bf16"][256])
+    qp = T._pad_queries(qt, 256, c.dtype)
+    cs, ci = T._lane_topk_emit_cuda(qp, c, bias, None, alpha, 4096)
+    times = {"merge": _median_ms(lambda: T._topk_pad(cs, ci, K)),
+             "torch.topk": _median_ms(lambda: torch.topk(cs, K, dim=1)),
+             "merge exact form": _median_ms(lambda: T._select_exact(cs, K))}
+    cr = torch.randn(cs.shape, generator=torch.Generator(device=dev).manual_seed(SEED + 50),
+                     device=dev)
+    times["merge, random scores"] = _median_ms(lambda: T._topk_pad(cr, ci, K))
+    times["torch.topk, random scores"] = _median_ms(lambda: torch.topk(cr, K, dim=1))
+    print(f"phase13d the final top-{K} over K2's candidates {tuple(cs.shape)}: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in times.items()) + f" {tag}", flush=True)
+    print(f"phase13 {checked} routes equal to their plain versions in hits and order; "
+          f"{time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
+    del flat, side
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def phase_ties_sharded(sharded, deleted, T, tag):
+    """Phase 13e: one (1, 4) sharded call over phase 10a's striped rows,
+    with one row copied into every stripe, against the same call through
+    K1's plain version."""
+    rows = sharded._rows_per_shard()
+    src = sharded._pk_slot[TIE_SRC]
+    slots = [s * rows + off for s in range(4) for off in (TIE_SRC + 128, TIE_SRC + 3 * 2048,
+                                                          TIE_SRC + 2 * 128 + 1)]
+    pks = [TIE_SRC] + [sharded._slot_pks[s] for s in slots
+                       if sharded._slot_pks[s] is not None and sharded._slot_pks[s] not in deleted]
+    row = sharded.vectors.gather(np.array([src]))[0, :DIMS].float().cpu().numpy()
+    sharded.upsert(pks, np.repeat(row[None], len(pks), 0))
+    q = _tie_queries(row, 8, SEED + 60)
+    T.LAUNCHES["lane_topk_acc"] = 0
+    dist, got = sharded.search_arrays(q, K)
+    _sync()
+    # once a cell, and once more in each cell whose tie check found equal
+    # scores at its cut (`sharded_flat_topk` repeats that cell's scan)
+    launched = T.LAUNCHES["lane_topk_acc"]
+    if not 4 <= launched <= 8:
+        raise AssertionError(f"phase13e: K1 launched {launched} times")
+    kernel = T.fused_flat_topk
+    T.fused_flat_topk = T._fused_flat_topk_plain
+    try:
+        pdist, want = sharded.search_arrays(q, K)
+    finally:
+        T.fused_flat_topk = kernel
+    if got.tolist() != want.tolist():
+        raise AssertionError(f"phase13e: sharded (1, 4) hits differ from plain: {got[0]} "
+                             f"against {want[0]}")
+    if not set(got[0].tolist()) <= set(pks):
+        raise AssertionError(f"phase13e: a hit that is no copy: {got[0]}")
+    print(f"phase13e sharded (1, 4) B=8 over {rows}-row stripes, {len(pks)} copies of one row "
+          f"in all 4: K1 {launched} launches (4 cells, then the cells with ties again), hits "
+          f"and order equal to plain; first row "
+          f"{got[0].tolist()} {tag}", flush=True)
+
+
 def _print_ptxas(log):
     """One line per compiled kernel from nvcc -Xptxas -v: its (mangled,
     shortened) name, registers and spill bytes. Returns {name: spill
@@ -2998,15 +3389,17 @@ def main() -> int:
     errs.update(group_errs)
     hybrid_launches = phase_hybrid(flat, f32_idx, deleted, ivf_idxs, ivf_deleted, ivf_queries,
                                    T, IP)
+    tag = f"[{smi}]"
+    tie_launches, _ = phase_ties(dev, ivf_idxs, T, IP, errs, tag)
     del f32_idx, ivf_idxs  # the l2 index stays: phase 10a is held against it
     torch.cuda.empty_cache()
     engine_launches = phase_engine(T, IP, smi, times[1, "kernel"])
 
-    tag = f"[{smi}]"
     sharded, shard_queries, flat_launches, _ = phase_sharded_flat(flat, deleted, T, IP, errs,
                                                                   tag)
     del flat
     phase_sharded_nccl(sharded, shard_queries, T, IP, tag)
+    phase_ties_sharded(sharded, deleted, T, tag)
     del sharded
     torch.cuda.empty_cache()
     shard_ivf_launches, _, shard_build_s = phase_sharded_ivf(T, IP, errs, tag)
@@ -3047,6 +3440,8 @@ def main() -> int:
             row["suite_launches"] = suite_launches[name]
         if name in entry_launches:  # phase 12b: transactions, migration, SIGKILL recovery
             row["entry_launches"] = entry_launches[name]
+        if name in tie_launches:  # phase 13b: the routes on copied rows
+            row["tie_launches"] = tie_launches[name]
         if product_ms is not None:  # the score product alone (cuBLAS), not the same function
             row["product_ms"] = product_ms
         if kernel_ms is not None:  # the kernel alone, device time (ms: the wrapper's call)

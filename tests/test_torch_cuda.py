@@ -28,7 +28,7 @@ import torch
 import tostore_tpu_torch.ops.ivfprobe as tivf
 import tostore_tpu_torch.ops.topk as ttopk
 from tostore_tpu_torch import FlatVectorIndex, IVFVectorIndex
-from torch_parity import TOL, assert_topk_match, torch_scan_inputs
+from torch_parity import TOL, assert_topk_equal, assert_topk_match, tie_inputs, torch_scan_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -289,6 +289,66 @@ def test_flat_auto_on_card_launches_k2(cuda, monkeypatch, dtype, b):
                                            row_scale=tx[3])
     torch.cuda.synchronize()
     assert_topk_match(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL[dtype])
+
+
+def _tie_scan(dev, dtype, b, n_blocks=16, d=256, metric="l2", seed=0):
+    """Scan tensors with one row copied across lanes, blocks and split
+    boundaries (`torch_parity.tie_inputs`): the top hits score exactly alike."""
+    inputs = tie_inputs(seed + b, b, n_blocks, d, dtype, metric)
+    tx, alpha, _ = torch_scan_inputs(None, b, None, d, dtype, metric, device=dev, inputs=inputs)
+    return tx, alpha
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b", [1, 8, 32, 40, 256])
+@pytest.mark.parametrize("fold", [False, True])
+def test_ties_kernels_match_plain_in_order(cuda, monkeypatch, dtype, b, fold):
+    """K1 / K2 on copied rows: the plain version's hits in its order (the
+    reference's tie order); `fold` forces 9 blocks a split, so K1
+    bubble-inserts into sorted lists."""
+    if fold:
+        monkeypatch.setattr(ttopk, "_split_plan", lambda n_blocks, *_: (9, -(-n_blocks // 9)))
+    tx, alpha = _tie_scan(cuda, dtype, b)
+    ks, ki = ttopk.fused_flat_topk(*tx[:3], k=10, alpha=alpha, row_scale=tx[3])
+    if b <= 32:
+        ps, pi = ttopk._fused_flat_topk_plain(*tx[:3], k=10, alpha=alpha, row_scale=tx[3])
+    else:
+        ps, pi = ttopk._fused_block_emit_plain(*tx[:3], k=10, alpha=alpha, blk_n=4096,
+                                               row_scale=tx[3])
+    torch.cuda.synchronize()
+    assert_topk_equal(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b", [40, 256])
+def test_auto_above_32_queries_holds_the_fused_contract(cuda, monkeypatch, dtype, b):
+    """On the card `auto` at B > 32 takes K2, the reference's
+    mode="fused" contract, ties included: its hits and order are those of
+    mode="fused" on the card and of the CPU's mode="fused" (the reference's
+    `auto` there takes the lane scan, whose tied set may differ)."""
+    monkeypatch.setattr(ttopk, "MIN_FUSED_N", 4096)
+    tx, alpha = _tie_scan(cuda, dtype, b)
+    auto = ttopk.flat_search(*tx[:3], k=10, alpha=alpha, mode="auto", row_scale=tx[3])
+    fused = ttopk.flat_search(*tx[:3], k=10, alpha=alpha, mode="fused", row_scale=tx[3])
+    cpu = ttopk.flat_search(tx[0].cpu(), tx[1].cpu(), tx[2].cpu(), k=10, alpha=alpha,
+                            mode="fused", row_scale=None if tx[3] is None else tx[3].cpu())
+    torch.cuda.synchronize()
+    assert_topk_equal(auto[0].cpu(), auto[1].cpu(), fused[0].cpu(), fused[1].cpu(), 0.0)
+    assert_topk_equal(auto[0].cpu(), auto[1].cpu(), cpu[0], cpu[1], TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_ties_k5_k6_match_plain_in_order(cuda, dtype):
+    tx, alpha = _tie_scan(cuda, dtype, 72)
+    ks, ki = ttopk._fused_group_emit(*tx[:3], k=10, alpha=alpha, blk_n=2048, gsz=3,
+                                     row_scale=tx[3])
+    ps, pi = ttopk._fused_group_emit_plain(*tx[:3], k=10, alpha=alpha, blk_n=2048, gsz=3,
+                                           row_scale=tx[3])
+    ks6, ki6 = ttopk.pipe_topk(*tx[:3], k=10, alpha=alpha, gsz=4)
+    ps6, pi6 = ttopk._pipe_topk_plain(*tx[:3], k=10, alpha=alpha, gsz=4)
+    torch.cuda.synchronize()
+    assert_topk_equal(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), TOL[dtype])
+    assert_topk_equal(ks6.cpu(), ki6.cpu(), ps6.cpu(), pi6.cpu(), TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

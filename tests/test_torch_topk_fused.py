@@ -137,6 +137,6 @@ def test_split_lists_model_matches_reference(dtype, k):
              for s in range(splits)]
     out_s = torch.stack([ls for ls, _ in lists], 1).view(blk_b, splits * width, 128)
     out_i = torch.stack([li for _, li in lists], 1).view(blk_b, splits * width, 128)
-    ts, ti = ttopk._topk_pad(*ttopk._merge_split_lists(out_s, out_i, t_cands, k), k)
+    ts, ti = ttopk._merge_split_lists(out_s, out_i, t_cands, k)
     js, ji = jtopk.fused_flat_topk(jx[0], jx[1], jx[2], k=k, alpha=alpha, row_scale=jx[3])
     assert_topk_match(ts[:b], ti[:b], js, ji, TOL[dtype])

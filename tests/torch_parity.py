@@ -7,10 +7,12 @@ Tolerances (relative to max(1, |score|)):
     of summation differs.
   - bf16 and int8 corpora: 1e-4. Products of bf16 values are exact in f32,
     so again only the order of summation differs, over larger values.
-Indices are compared as sets; an index in only one result must score
-within the tolerance of that row's k-th score (a near-tie at the cut).
-Misses (score <= NEG_INF / 2) must agree in number; their indices are
-arbitrary.
+`assert_topk_match` compares indices as sets; an index in only one result
+must score within the tolerance of that row's k-th score (a near-tie at
+the cut). `assert_topk_equal` holds the indices of the hits equal in
+order, with no tolerance, for inputs whose equal scores are exactly equal
+(duplicated rows), where both packages must break the ties alike. Misses
+(score <= NEG_INF / 2) must agree in number; their indices are arbitrary.
 """
 
 from __future__ import annotations
@@ -57,6 +59,20 @@ def assert_topk_match(got_s, got_i, want_s, want_i, tol):
             )
 
 
+def assert_topk_equal(got_s, got_i, want_s, want_i, tol):
+    """Port (got) vs reference (want) top-k: scores within tol, the hits'
+    indices equal and in the same order, misses in the same places."""
+    got_s, want_s = np.asarray(got_s, np.float32), np.asarray(want_s, np.float32)
+    got_i, want_i = np.asarray(got_i, np.int64), np.asarray(want_i, np.int64)
+    assert_scores_close(got_s, want_s, tol)
+    hit = want_s > NEG_INF / 2
+    np.testing.assert_array_equal(got_s > NEG_INF / 2, hit, err_msg="misses differ")
+    for b in range(want_s.shape[0]):
+        assert got_i[b][hit[b]].tolist() == want_i[b][hit[b]].tolist(), (
+            f"row {b}: hits {got_i[b][hit[b]].tolist()} != reference "
+            f"{want_i[b][hit[b]].tolist()}")
+
+
 def make_inputs(seed, b, n, d, dtype, metric, invalid_frac=0.01):
     """Numpy inputs for one scan: (q f32 [b, d], corpus [n, d] f32 or int8,
     row_scale f32 [n] or None, valid bool [n], alpha). Cosine rows and
@@ -78,6 +94,38 @@ def make_inputs(seed, b, n, d, dtype, metric, invalid_frac=0.01):
     return q, c, scale, valid, alpha
 
 
+# Duplicated rows: row DUP_SRC (lane 37 of block 0) copied two a block in
+# its own lane (so its lane holds more than T = 16 equal candidates) and to
+# single lanes of blocks on both sides of the tests' split boundaries.
+DUP_SRC = 37
+DUP_BLK = 2048
+
+
+def dup_rows(n_blocks):
+    rows = [blk * DUP_BLK + r * 128 + DUP_SRC for blk in range(n_blocks) for r in (3, 11)]
+    rows += [blk * DUP_BLK + lane for blk in (1, 4, n_blocks // 2, n_blocks - 1)
+             for lane in (0, 5, 64, 100, 127)]
+    return sorted(set(rows))
+
+
+def tie_inputs(seed, b, n_blocks, d, dtype, metric):
+    """`make_inputs` over n_blocks * 2048 rows with row DUP_SRC copied to
+    `dup_rows`, and b queries near it: (q, c, scale, valid, alpha)."""
+    q, c, scale, valid, alpha = make_inputs(seed, b, n_blocks * DUP_BLK, d, dtype, metric)
+    rows = dup_rows(n_blocks)
+    c[rows] = c[DUP_SRC]
+    valid[rows + [DUP_SRC]] = True
+    if scale is not None:
+        scale[rows] = scale[DUP_SRC]
+    src = c[DUP_SRC].astype(np.float32) * (scale[DUP_SRC] if scale is not None else 1.0)
+    rng = np.random.default_rng(seed + 1)
+    q = (src[None, :] + 0.01 * np.abs(src).mean() * rng.standard_normal((b, d)))
+    q = q.astype(np.float32)
+    if metric == "cosine":
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    return q, c, scale, valid, alpha
+
+
 def stored_sq_norms(c, scale):
     x = c.astype(np.float32)
     if scale is not None:
@@ -85,9 +133,11 @@ def stored_sq_norms(c, scale):
     return np.einsum("ij,ij->i", x, x).astype(np.float32)
 
 
-def torch_scan_inputs(seed, b, n, d, dtype, metric, device="cpu"):
-    """(q, corpus, bias, row_scale) tensors for one scan, and alpha."""
-    q, c, scale, valid, alpha = make_inputs(seed, b, n, d, dtype, metric)
+def torch_scan_inputs(seed, b, n, d, dtype, metric, device="cpu", inputs=None):
+    """(q, corpus, bias, row_scale) tensors for one scan, and alpha; from
+    `make_inputs`, or from `inputs` (its tuple, e.g. `tie_inputs`')."""
+    q, c, scale, valid, alpha = inputs or make_inputs(seed, b, n, d, dtype, metric)
+    n = c.shape[0]
     base = -stored_sq_norms(c, scale) if metric == "l2" else np.zeros(n, np.float32)
     bias = np.where(valid, base, NEG_INF).astype(np.float32)
     tc = torch.from_numpy(c)
@@ -99,11 +149,12 @@ def torch_scan_inputs(seed, b, n, d, dtype, metric, device="cpu"):
     return tx, alpha, (q, c, bias, scale)
 
 
-def scan_inputs(seed, b, n, d, dtype, metric):
+def scan_inputs(seed, b, n, d, dtype, metric, inputs=None):
     """The same scan inputs for both packages: (jax args, torch args, alpha)."""
     import jax.numpy as jnp  # the card's tests import this module without JAX
 
-    tx, alpha, (q, c, bias, scale) = torch_scan_inputs(seed, b, n, d, dtype, metric)
+    tx, alpha, (q, c, bias, scale) = torch_scan_inputs(seed, b, n, d, dtype, metric,
+                                                       inputs=inputs)
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "int8": jnp.int8}[dtype]
     jx = (jnp.asarray(q), jnp.asarray(c, jdt), jnp.asarray(bias),
           None if scale is None else jnp.asarray(scale))

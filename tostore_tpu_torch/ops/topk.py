@@ -2,7 +2,7 @@
 
 All paths share one algorithmic core: score a chunk of corpus rows, keep
 each chunk's per-lane top-2 (score, index) candidates (lane = row % 128),
-and merge the candidates with torch.topk. Dispatched by
+and merge the candidates with `top_k_first`. Dispatched by
 `flat_search(mode=...)`:
 
   - `fused_flat_topk`: 2048-row blocks, per-lane top-2 folded into a
@@ -19,7 +19,14 @@ and merge the candidates with torch.topk. Dispatched by
     takes it there for CPU tensors and, on the card, for f32 corpora
     above 256 queries (`_auto_route`): elsewhere on the card K2 serves the
     same contract with finer buckets, faster.
-  - `flat_topk_xla` (exact): chunked matmul + torch.topk, always exact.
+  - `flat_topk_xla` (exact): chunked matmul + `top_k_first`, always exact.
+
+Every selection is `top_k_first`, `jax.lax.top_k`'s contract: scores in
+IEEE totalOrder, ties to the lower position in the candidate layout the
+reference's kernel or scan emits (the row; t*128 + lane of K1's lists;
+block, then tops before seconds, of K2 / K5 / K6; chunk, then tops before
+seconds, of the lane scan), so each route returns the reference's hits in
+the reference's order, exactly equal scores included.
 
 Outside the dispatch, as in the JAX package: `_fused_group_emit` folds
 the per-block top-2 into a per-(group of gsz blocks, lane) top-2 (kernel
@@ -46,6 +53,9 @@ TF32 off, as torch does by default.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
@@ -100,12 +110,129 @@ LAUNCHES = {"lane_topk_acc": 0, "lane_topk_emit": 0, "lane_topk_acc_f32": 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
+# --------------------------------------------------------------------------
+# Selection in the reference's order
+# --------------------------------------------------------------------------
+
+# Up to this many scores a selection runs its exact form directly (no
+# host sync); above, torch.topk selects and only rows with ties reselect.
+EXACT_SELECT_MAX = 1 << 20
+_LOW32 = 0xFFFFFFFF
+
+
+def _order_key(s: torch.Tensor) -> torch.Tensor:
+    """float32 scores -> int32 keys in IEEE totalOrder (-NaN < -inf < ... <
+    -0.0 < 0.0 < ... < inf < NaN), as XLA compares floats in its top-k:
+    the bits of a negative float, all but the sign flipped."""
+    b = s.float().contiguous().view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def _select_exact(s: torch.Tensor, k: int):
+    """`top_k_first` by selecting over all N candidates one unique int64
+    key each, (order key << 32) | (2^32 - 1 - position): the larger key is
+    the better score, then the lower position."""
+    n = s.shape[-1]
+    key = (_order_key(s).long() << 32) | (_LOW32 - torch.arange(n, device=s.device))
+    pos = torch.topk(key, min(k, n), dim=-1).indices
+    return torch.gather(s, -1, pos), pos
+
+
+def _select_fast(s: torch.Tensor, k: int):
+    """(values, positions, unsure [...] bool) of the top-k along the last
+    axis, k < N: torch.topk's k + 1 best, in its order. Where they are
+    strictly decreasing (IEEE `>`, false for equal values, -0.0 against
+    0.0, and NaN), the first k are the exact answer: no two of them tie,
+    and every candidate outside scores below the k-th. Other rows are
+    unsure."""
+    v, p = torch.topk(s, k + 1, dim=-1)
+    unsure = ~(v[..., :-1] > v[..., 1:]).all(dim=-1)
+    return v[..., :k], p[..., :k], unsure
+
+
+def _select(s: torch.Tensor, k: int):
+    """`top_k_first` without its last check: (values, positions, unsure
+    rows), the exact form (unsure None) up to EXACT_SELECT_MAX scores or
+    where k covers the axis."""
+    n = s.shape[-1]
+    kk = min(k, n)
+    if s.numel() <= EXACT_SELECT_MAX or kk >= n or kk == 0:
+        return (*_select_exact(s, kk), None)
+    return _select_fast(s, kk)
+
+
+class TieCheck:
+    """The unsure rows of the selections made under `deferred_tie_check()`:
+    each records a bool mask over its first axis instead of syncing."""
+
+    def __init__(self):
+        self.masks = []
+
+    def unsure(self, n: int | None = None) -> bool:
+        """Whether a selection left one of the first n rows (all, for None)
+        unsure: one host sync; the caller then repeats its work outside
+        the context."""
+        return any(bool(m[:n].any()) for m in self.masks)
+
+
+_TIE_CHECK: contextvars.ContextVar = contextvars.ContextVar("tie_check", default=None)
+
+
+@contextlib.contextmanager
+def deferred_tie_check():
+    """Selections inside leave their unsure rows (`_select_fast`) in the
+    yielded TieCheck instead of syncing to reselect them, so that a caller
+    that reads its results back anyway checks once, after all its work is
+    queued, and repeats the call outside the context where
+    `TieCheck.unsure` says so. Per thread (a context variable)."""
+    check = TieCheck()
+    token = _TIE_CHECK.set(check)
+    try:
+        yield check
+    finally:
+        _TIE_CHECK.reset(token)
+
+
+def _unsure_rows(unsure: torch.Tensor | None):
+    """The flat indices of the unsure rows, or None: one host sync, and a
+    second only where some row is unsure. Under `deferred_tie_check()` the
+    rows are recorded and none are returned."""
+    if unsure is None:
+        return None
+    check = _TIE_CHECK.get()
+    if check is not None:
+        check.masks.append(unsure.reshape(unsure.shape[0], -1).any(dim=1)
+                           if unsure.dim() else unsure.reshape(1))
+        return None
+    if not bool(unsure.any()):
+        return None
+    return unsure.reshape(-1).nonzero().flatten()
+
+
+def top_k_first(s: torch.Tensor, k: int):
+    """Top-k along the last axis with `jax.lax.top_k`'s contract: scores
+    descending in IEEE totalOrder (0.0 before -0.0, NaN first), and among
+    equal scores the lower position first, both for membership at the k-th
+    place and for order. `torch.topk` fixes no order among equal values:
+    its answer stands where the k + 1 best are strictly decreasing, and
+    the other rows select again over unique keys (score, position), one
+    int64 each. Returns (values, positions), min(k, N) wide."""
+    v, p, unsure = _select(s, k)
+    rows = _unsure_rows(unsure)
+    if rows is not None:
+        lead = s.shape[:-1]
+        ev, ep = _select_exact(s.reshape(-1, s.shape[-1])[rows], v.shape[-1])
+        v = v.reshape(-1, v.shape[-1]).index_copy(0, rows, ev).reshape(*lead, -1)
+        p = p.reshape(-1, p.shape[-1]).index_copy(0, rows, ep).reshape(*lead, -1)
+    return v, p
+
+
 def _topk_pad(flat_s, flat_i, k: int):
     """Top-k over the candidate axis (flat_i None: the candidates are the
-    rows themselves); a k above the candidate width pads with NEG_INF /
-    index 0."""
+    rows themselves), ties to the lower position (`top_k_first`); a k
+    above the candidate width pads with NEG_INF / index 0."""
     kk = min(k, flat_s.shape[1])
-    top_s, pos = torch.topk(flat_s, kk, dim=1)
+    top_s, pos = top_k_first(flat_s, kk)
     top_i = pos if flat_i is None else torch.gather(flat_i, 1, pos)
     if kk < k:
         top_s = torch.nn.functional.pad(top_s, (0, k - kk), value=NEG_INF)
@@ -127,22 +254,37 @@ def _scores(qc, cblk, bblk, sblk, alpha):
 
 def flat_topk_xla(q, corpus, bias, alpha, k, row_scale=None):
     """Exact scan. Chunks the corpus so peak memory stays ~[B, EXACT_CHUNK]
-    while torch.topk does the selection. Returns (scores [B, k] f32 desc,
-    idx [B, k] int64)."""
+    while `top_k_first` does the selection, ties to the lower row. Returns
+    (scores [B, k] f32 desc, idx [B, k] int64)."""
     n = corpus.shape[0]
     qc = q.to(score_dtype(corpus.dtype))
     if n <= 2 * EXACT_CHUNK or n % EXACT_CHUNK != 0:
         return _topk_pad(_scores(qc, corpus, bias, row_scale, alpha), None, k)
+    top_s, top_i, unsure = _exact_chunks(qc, corpus, bias, row_scale, alpha, k, _select)
+    rows = _unsure_rows(unsure)  # one host sync for all chunks
+    if rows is not None:
+        es, ei, _ = _exact_chunks(qc[rows], corpus, bias, row_scale, alpha, k,
+                                  lambda s, kk: (*_select_exact(s, kk), None))
+        top_s, top_i = top_s.index_copy(0, rows, es), top_i.index_copy(0, rows, ei)
+    return top_s, top_i
+
+
+def _exact_chunks(qc, corpus, bias, row_scale, alpha, k, select):
+    """Each EXACT_CHUNK chunk's top-kk by `select` (-> values, positions,
+    unsure rows or None), then the top-k of them, laid out chunk by chunk
+    as the reference's scan stacks them: (scores, rows, unsure rows)."""
     kk = min(k, EXACT_CHUNK)
-    parts_s, parts_i = [], []
-    for off in range(0, n, EXACT_CHUNK):
+    parts_s, parts_i, unsure = [], [], None
+    for off in range(0, corpus.shape[0], EXACT_CHUNK):
         sl = slice(off, off + EXACT_CHUNK)
         s = _scores(qc, corpus[sl], bias[sl],
                     row_scale[sl] if row_scale is not None else None, alpha)
-        ts, ti = torch.topk(s, kk, dim=1)
+        ts, ti, u = select(s, kk)
         parts_s.append(ts)
         parts_i.append(ti + off)
-    return _topk_pad(torch.cat(parts_s, 1), torch.cat(parts_i, 1), k)
+        if u is not None:
+            unsure = u if unsure is None else unsure | u
+    return (*_topk_pad(torch.cat(parts_s, 1), torch.cat(parts_i, 1), k), unsure)
 
 
 # --------------------------------------------------------------------------
@@ -190,26 +332,37 @@ def _block_cands_plain(qp, corpus, bias, row_scale, alpha, blk_n):
     return torch.cat(parts_s, 1), torch.cat(parts_i, 1)
 
 
-def _running_top_t(cs, ci, t_cands: int):
-    """Per-lane top-T of the per-block candidates, as K1's bubble insert
-    leaves it: [B, n_blocks*256] -> [B, T*128] laid out t-major (t*128 +
-    lane). A stable descending sort in insertion order (block by block,
-    top then second) keeps the earlier of equal scores, like the insert;
-    lanes with fewer than T candidates keep NEG_INF / index 0."""
-    b = cs.shape[0]
-    nb = cs.shape[1] // (2 * LANE)
-    vs = cs.view(b, nb * 2, LANE).transpose(1, 2)  # [B, 128, n_blocks*2]
-    vi = ci.view(b, nb * 2, LANE).transpose(1, 2)
-    vs, order = torch.sort(vs, dim=2, descending=True, stable=True)
-    vi = torch.gather(vi, 2, order)
-    if nb * 2 >= t_cands:
-        vs, vi = vs[:, :, :t_cands], vi[:, :, :t_cands]
-    else:
-        pad = t_cands - nb * 2
+def _lane_top_t(vs, vi, t_cands: int):
+    """The reference's per-lane running top-T (K1's bubble insert) from a
+    lane's candidates in insertion order: [B, 128, L] -> [B, T*128] laid
+    out t-major (t*128 + lane), the layout whose positions break the final
+    top-k's ties. The insert compares with `>`: a score <= NEG_INF (or NaN)
+    never enters, so its entry is (NEG_INF, index 0) as in the initial
+    list, and equal scores, -0.0 and 0.0 among them, keep insertion order.
+    Lanes with fewer than T candidates pad with NEG_INF / index 0."""
+    b, _, width = vs.shape
+    live = vs > NEG_INF
+    vs = torch.where(live, vs, NEG_INF)
+    vi = torch.where(live, vi, torch.zeros_like(vi))
+    # + 0.0 turns -0.0 into 0.0: the insert's order treats them as equal
+    _, pos = top_k_first(vs + 0.0, t_cands)
+    vs, vi = torch.gather(vs, 2, pos), torch.gather(vi, 2, pos)
+    if width < t_cands:
+        pad = t_cands - width
         vs = torch.nn.functional.pad(vs, (0, pad), value=NEG_INF)
         vi = torch.nn.functional.pad(vi, (0, pad))
     return (vs.transpose(1, 2).reshape(b, t_cands * LANE),
             vi.transpose(1, 2).reshape(b, t_cands * LANE))
+
+
+def _running_top_t(cs, ci, t_cands: int):
+    """Per-lane top-T of the per-block candidates, as K1's bubble insert
+    leaves it: [B, n_blocks*256] -> [B, T*128] laid out t-major. The
+    insertion order is block by block, top then second."""
+    b = cs.shape[0]
+    nb = cs.shape[1] // (2 * LANE)
+    return _lane_top_t(cs.view(b, nb * 2, LANE).transpose(1, 2),
+                       ci.view(b, nb * 2, LANE).transpose(1, 2), t_cands)
 
 
 # --------------------------------------------------------------------------
@@ -279,29 +432,46 @@ def _list_width(per: int, t_cands: int) -> int:
 
 
 def _merge_split_lists(out_s, out_i, t_cands: int, k: int):
-    """K1's per-split lists [B_pad, splits * W, 128], each holding its
-    split's per-lane top-T (W >= T entries, or all of the split's
-    candidates) -> candidates [B_pad, width] whose top-k is the
-    reference's. For k <= T the top-k of all splits' lists together is the
-    top-k of the per-lane top-T lists (a lane cannot hold more than k <= T
-    of the top-k), so the lists go to the final top-k as they are; for
-    k > T the splits are first merged per lane into the reference's
-    per-lane top-T, laid out t-major as the Pallas kernel emits it."""
-    b_pad = out_s.shape[0]
-    if k > t_cands and out_s.shape[1] > t_cands:
-        out_s, pos = torch.topk(out_s, t_cands, dim=1)
-        out_i = torch.gather(out_i, 1, pos)
-    return out_s.reshape(b_pad, -1), out_i.reshape(b_pad, -1)
+    """K1's per-split lists [B_pad, splits * W, 128] -> the reference's
+    top-k (scores, rows) [B_pad, k]: the top-k of its per-lane top-T lists
+    by (score, t * 128 + lane). A split holds its blocks' per-lane
+    candidates in insertion order (W = 2 * blocks, unsorted) or its sorted
+    top-T, equal scores in insertion order (W = T); splits are contiguous
+    block ranges in ascending order, so a lane's lists side by side are in
+    insertion order among equal scores, and its top-T of them by (score,
+    position) is the reference's list (`_lane_top_t`).
+
+    Where the k + 1 best of all lists are strictly decreasing and k <= T,
+    they are the answer as they stand (`_select_fast`): no lane holds more
+    than k of them, so none is cut at T, and with no equal scores the
+    order is the score's. Other rows take the per-lane merge."""
+    b = out_s.shape[0]
+    flat_s, flat_i = out_s.reshape(b, -1), out_i.reshape(b, -1)
+    if k > t_cands or k >= flat_s.shape[1]:
+        return _lane_merge(out_s, out_i, t_cands, k)
+    top_s, pos, unsure = _select_fast(flat_s, k)
+    top_i = torch.gather(flat_i, 1, pos).long()
+    rows = _unsure_rows(unsure)
+    if rows is not None:
+        es, ei = _lane_merge(out_s[rows], out_i[rows], t_cands, k)
+        top_s, top_i = top_s.index_copy(0, rows, es), top_i.index_copy(0, rows, ei)
+    return top_s, top_i
+
+
+def _lane_merge(out_s, out_i, t_cands: int, k: int):
+    """The reference's top-k from K1's split lists by way of its per-lane
+    top-T lists."""
+    return _topk_pad(*_lane_top_t(out_s.transpose(1, 2), out_i.transpose(1, 2), t_cands), k)
 
 
 def _scale_ptr(row_scale):
     return row_scale.data_ptr() if row_scale is not None else None
 
 
-def _lane_topk_acc_cuda(qp, corpus, bias, row_scale, alpha, blk_n, t_cands, k):
-    """K1 on the card: candidates [B_pad, W] whose top-k is the reference's.
-    Each split of the block range keeps its own per-lane top-T lists
-    (`_merge_split_lists`)."""
+def _lane_topk_acc_cuda(qp, corpus, bias, row_scale, alpha, blk_n, t_cands):
+    """K1 on the card: each split of the block range keeps its own
+    per-lane top-T lists, [B_pad, splits * W, 128] (`_merge_split_lists`
+    merges them)."""
     _check_kernel_inputs(qp, corpus, bias, row_scale, blk_n)
     b_pad, d = qp.shape
     n, n_blocks = corpus.shape[0], corpus.shape[0] // blk_n
@@ -329,7 +499,7 @@ def _lane_topk_acc_cuda(qp, corpus, bias, row_scale, alpha, blk_n, t_cands, k):
                 splits, t_cands, out_s.data_ptr(), out_i.data_ptr(), stream)
     _kernels.check(name, err)
     _kernels.count(LAUNCHES, name)
-    return _merge_split_lists(out_s, out_i, t_cands, k)
+    return out_s, out_i
 
 
 def _lane_topk_emit_cuda(qp, corpus, bias, row_scale, alpha, blk_n):
@@ -418,8 +588,8 @@ def fused_flat_topk(q, corpus, bias, *, k: int, alpha: float = 1.0,
         return _fused_flat_topk_plain(q, corpus, bias, k=k, alpha=alpha,
                                       blk_n=blk_n, row_scale=row_scale)
     qp = _pad_queries(q, blk_b, corpus.dtype)
-    cs, ci = _lane_topk_acc_cuda(qp, corpus, bias, row_scale, alpha, blk_n, t_cands, k)
-    top_s, top_i = _topk_pad(cs, ci, k)
+    out_s, out_i = _lane_topk_acc_cuda(qp, corpus, bias, row_scale, alpha, blk_n, t_cands)
+    top_s, top_i = _merge_split_lists(out_s, out_i, t_cands, k)
     return top_s[: q.shape[0]], top_i[: q.shape[0]]
 
 
@@ -436,7 +606,7 @@ def _fused_flat_topk_plain(q, corpus, bias, *, k: int, alpha: float = 1.0,
 
 
 def _fused_block_emit(q, corpus, bias, *, k, alpha, blk_n, row_scale=None):
-    """Per-block candidate emission (K2) + torch.topk merge over
+    """Per-block candidate emission (K2) + `top_k_first` merge over
     [B, n_blocks*256]. On a CPU tensor this is `_fused_block_emit_plain`."""
     if not corpus.is_cuda:
         return _fused_block_emit_plain(q, corpus, bias, k=k, alpha=alpha,
@@ -625,7 +795,7 @@ def _launch_group(name, qp, corpus, bias, row_scale, alpha, blk_n, gsz):
 
 def _fused_group_emit(q, corpus, bias, *, k, alpha, blk_n, gsz=None, row_scale=None):
     """Stage 1 = grouped emission (K5): per-(group of gsz blocks, lane)
-    top-2; stage 2 = torch.topk over [B, n_groups*256]. Returns (scores
+    top-2; stage 2 = `top_k_first` over [B, n_groups*256]. Returns (scores
     [B, k] f32 desc, idx [B, k] int64). The exactness bucket count is
     n_groups * 128. f32 corpora score in true f32, as the reference's
     Precision.HIGHEST. On a CPU tensor this is `_fused_group_emit_plain`."""
@@ -652,7 +822,7 @@ def pipe_topk(q, corpus, bias, *, k, alpha=1.0, blk_n=2048, blk_b=256, gsz=None)
     """The pipelined grouped scan (K6): the candidates of
     `_fused_group_emit`, bit for bit, at a gsz >= 2 dividing n_blocks
     (default: the largest such gsz keeping >= 16 groups), no row scale;
-    then torch.topk.
+    then `top_k_first`.
     f32 corpora score in true f32. (The TPU experiment scored f32 at the
     default matmul precision, which is not this module's exactness
     contract.) On a CPU tensor this is `_pipe_topk_plain`."""
@@ -710,7 +880,7 @@ def _lane_chunk_for(b: int, n: int) -> int:
 def flat_topk_lane(q, corpus, bias, *, k: int, alpha: float = 1.0,
                    ch: int | None = None, row_scale=None):
     """Lane-candidate flat scan: per-(chunk, lane) top-2 over chunks of
-    `ch` rows, then torch.topk. No alignment requirements: the remainder
+    `ch` rows, then `top_k_first`. No alignment requirements: the remainder
     after CH-chunking is scanned separately, padded to 128 rows with
     NEG_INF bias."""
     b = q.shape[0]
@@ -774,7 +944,10 @@ def flat_search(q, corpus, bias, *, k: int, alpha: float = 1.0,
              small N or huge k -> exact chunked path.
       'fused' forces fused_flat_topk (K1, or K2 for B > 32); 'exact' forces
       the chunked exact scan; 'fast' is served as 'auto' (module
-      docstring)."""
+      docstring). So on the card `auto` at B > 32 holds the reference's
+      mode="fused" contract, ties included (K2's (block, lane) buckets and
+      their order), not its `auto` one (the lane scan's (chunk, lane)
+      buckets), which may keep another row among equal scores."""
     n, d = corpus.shape
     aligned = n % DEFAULT_BLK_N == 0 and d % LANE == 0
     approx_ok = aligned and k <= CANDS_PER_LANE * LANE

@@ -22,9 +22,9 @@ import torch
 from ..ops import distance as D
 from ..ops import topk as T
 from ..ops.runtime import NEG_INF, ROW_BLOCK, round_up
+from ..ops.topk import top_k_first
 from ..utils.bf16 import BF16Array
 from ..vector.corpus import _UPLOAD_BYTES, quantize_int8
-from ..vector.pq import top_k_first
 from .mesh import Mesh, Striped, replicated_from_host, shard_count
 
 # rows of a stripe scored at once by the Lloyd step
@@ -79,14 +79,22 @@ def sharded_flat_topk(q, corpus: Striped, bias: Striped, *, k: int, alpha: float
     if b % dp:
         raise ValueError(f"{b} queries do not split over dp={dp}")
     bl = b // dp
-    local = {}
+    scans, found, checks = {}, {}, {}
     for dpi, s, dev in mesh.owned:
         qb = _as_tensor(q[dpi * bl:(dpi + 1) * bl], dev)
         rs = row_scale.part(dpi, s) if row_scale is not None else None
-        ts, ti = T.flat_search(qb, corpus.part(dpi, s), bias.part(dpi, s),
-                               k=min(k, n_local), alpha=alpha, mode=mode, row_scale=rs)
+        scans[(dpi, s)] = lambda qb=qb, dpi=dpi, s=s, rs=rs: T.flat_search(
+            qb, corpus.part(dpi, s), bias.part(dpi, s), k=min(k, n_local), alpha=alpha,
+            mode=mode, row_scale=rs)
+        # every cell's scan is queued before a tie check syncs
+        with T.deferred_tie_check() as checks[(dpi, s)]:
+            found[(dpi, s)] = scans[(dpi, s)]()
+    local = {}
+    for key, ties in checks.items():
+        # equal scores at a cut (rare): that cell's scan again, checked inline
+        ts, ti = scans[key]() if ties.unsure(bl) else found[key]
         ts, ti = _pad_local(ts, ti, k)
-        local[(dpi, s)] = (ts, ti + s * n_local)
+        local[key] = (ts, ti + key[1] * n_local)
     return _merge_local_topk(local, k, mesh)
 
 

@@ -34,6 +34,7 @@ from ..models.results import VectorSearchResult
 from ..ops import distance as D
 from ..ops.ivfprobe import adc_bucket_scores, adc_kernel_supported, bucket_probe_scores
 from ..ops.runtime import NEG_INF, f32_dot, round_up, score_dtype
+from ..ops.topk import top_k_first
 from .corpus import DeviceCorpus
 from .flat import _METRIC_ALIASES, FlatVectorIndex
 from .pq import (
@@ -42,7 +43,6 @@ from .pq import (
     adc_tables,
     adc_tables_probed,
     pq_encode,
-    top_k_first,
     train_pq,
 )
 
@@ -87,8 +87,10 @@ def _rescore(q, cand, vectors, scales, sq_norms, alpha):
 
 
 def _final_topk(s, slots, k: int):
-    kk = min(k, s.shape[1])
-    ts, ti = torch.topk(s, kk, dim=1)
+    """Top-k of [B, R] candidate scores in the reference's candidate order
+    (probes in probe order, each bucket in row order; or the re-rank pool
+    in ADC order), ties to the earlier candidate; -> (scores, slots)."""
+    ts, ti = top_k_first(s, k)
     return ts, torch.gather(slots, 1, ti)
 
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.runtime import f32_dot
+from ..ops.topk import top_k_first
 
 DEFAULT_K = 256
 TRAIN_SAMPLE_CAP = 2500
@@ -68,16 +69,6 @@ class PQCodebook:
     def from_state_dict(d, *, device):
         cb = torch.tensor(np.asarray(d["codebooks"], np.float32), device=device)
         return PQCodebook(cb, int(d["dims"]))
-
-
-def top_k_first(s: torch.Tensor, k: int):
-    """Top-k along the last axis with `lax.top_k`'s tie order (the lower
-    index first): a stable descending sort. `torch.topk` fixes no order
-    for ties, and where the JAX package's choice among equal scores picks
-    a different set (duplicated slice centroids, equal ADC sums), the
-    results differ."""
-    vals, idx = torch.sort(s, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def _subspace_view(x: torch.Tensor, m: int) -> torch.Tensor:
