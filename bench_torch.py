@@ -17,7 +17,6 @@ card the default device raises.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import subprocess
 import sys
@@ -63,29 +62,17 @@ def timeit(fn, *args, reps=30, trials=3):
     """Seconds a call, as bench.py:47-56 and bench_all.py:24-33 define it:
     one warm-up call, then the best of `trials` trials, each the mean of
     `reps` back-to-back calls. The card is synchronised at both ends of a
-    trial, in place of the reference's host readback. The port's
-    selections check for equal scores at their cut once a trial, with that
-    readback (`ops.topk.deferred_tie_check`, as `search_arrays` checks
-    once a call), so the calls queue back to back as the reference's do;
-    a trial whose check finds ties is timed again with the check inline
-    in every call."""
-    from tostore_tpu_torch.ops import topk
-
+    trial, in place of the reference's host readback."""
     fn(*args)
     sync()
     best = float("inf")
     for _ in range(trials):
-        for deferred in (True, False):
-            sync()
-            t0 = time.perf_counter()
-            with topk.deferred_tie_check() if deferred else contextlib.nullcontext() as ties:
-                for _ in range(reps):
-                    fn(*args)
-                sync()
-            seconds = (time.perf_counter() - t0) / reps
-            if ties is None or not ties.unsure():
-                break
-        best = min(best, seconds)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(*args)
+        sync()
+        best = min(best, (time.perf_counter() - t0) / reps)
     return best
 
 

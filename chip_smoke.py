@@ -36,9 +36,7 @@ imports nothing of JAX or tostore_tpu. Phases:
      top-k included), kernel beside plain version, for each B, with the
      kernel's own device time (torch.profiler), the bound (bytes over 3.35
      TB/s or FLOPs over 989 TFLOP/s, H100 SXM data sheet), the share of
-     it, the call again with its tie check deferred to the caller's
-     readback (`deferred_tie_check`, as search_arrays runs it), and
-     `product_ms`: torch.mm of the same [B, 768] x [768, N] score
+     it, and `product_ms`: torch.mm of the same [B, 768] x [768, N] score
      product alone (cuBLAS; not the same function, no single PyTorch call
      computes the lane top-k); at B = 256 also the plain lane scan and
      mode="exact"; the f32 FMA K1 / K2 the same on the f32 index (B = 8,
@@ -234,10 +232,11 @@ imports nothing of JAX or tostore_tpu. Phases:
      order (scores within the dtype's); search_arrays' slots are the
      kernel's; the IVF probes against the same search with K3 / K4's plain
      versions swapped in. (d) The final top-10 over K2's [256, 65,536]
-     candidates: `_topk_pad` (torch.topk of k + 1, its tie check, the
-     exact reselect of rows with ties) beside torch.topk alone, on the
-     copied rows (every row has ties: the reselect) and on random scores;
-     and the exact form over all keys. (e) One (1, 4) sharded B = 8 call
+     candidates: `_topk_pad` (torch.topk of k + 1, a host sync for the
+     rows whose k + 1 best are not strictly decreasing, their reselect
+     over one int64 key a candidate) beside torch.topk alone, the library
+     call, on the copied rows (every row has ties at its cut: all
+     reselect) and on random scores; and the int64-key form alone. (e) One (1, 4) sharded B = 8 call
      with copies in all 4 stripes against the same call through K1's
      plain version.
 
@@ -609,13 +608,6 @@ def _pairs(idx, qt, b, T):
             product)
 
 
-def _deferred(fn, T):
-    def call():
-        with T.deferred_tie_check():
-            return fn()
-    return call
-
-
 def _pair_bound(idx, b, T):
     """Bound of K1 (B <= 32: its [B, T*128] lists) or K2 (its [B, n_blocks
     * 256] candidates at blk_n 4096) on the index's corpus."""
@@ -694,9 +686,6 @@ def phase_main_kernels(idxs, side, queries, T, errs):
     for b in TIMED_B:
         qt, _, _ = idx._prep_queries(queries[b])
         pair = _pairs(idx, qt, b, T)
-        # the wrapper's call with its tie check left to the caller's readback,
-        # as search_arrays runs it (`deferred_tie_check`; no sync inside)
-        pair = pair[:1] + (("deferred", _deferred(pair[0][1], T)),) + pair[1:]
         # kernel, plain, ..., plain, kernel: each measured twice in turns
         order = list(pair) + list(reversed(pair))
         for name, fn in order:
@@ -3188,9 +3177,7 @@ def phase_ties(dev, ivf_idxs, T, IP, errs, tag):
         got["ivf", name] = ivf_idxs[name].search_arrays(ivf_q[name], K, mode="probe")
     _sync()
     launches = {**T.LAUNCHES, **{k: v for k, v in IP.LAUNCHES.items()}}
-    print(f"phase13b launches on the ties path: {launches} (a flat search_arrays whose "
-          f"deferred tie check finds equal scores at the cut, as every one on these copies "
-          f"does, runs its scan again with the check inline) {tag}", flush=True)
+    print(f"phase13b launches on the ties path: {launches} {tag}", flush=True)
     for key, n in launches.items():
         if n <= 0:
             raise AssertionError(f"phase13b: kernel {key} was not launched on the ties path")
@@ -3261,7 +3248,7 @@ def phase_ties(dev, ivf_idxs, T, IP, errs, tag):
     cs, ci = T._lane_topk_emit_cuda(qp, c, bias, None, alpha, 4096)
     times = {"merge": _median_ms(lambda: T._topk_pad(cs, ci, K)),
              "torch.topk": _median_ms(lambda: torch.topk(cs, K, dim=1)),
-             "merge exact form": _median_ms(lambda: T._select_exact(cs, K))}
+             "merge, one int64 key a candidate": _median_ms(lambda: T._select_exact(cs, K))}
     cr = torch.randn(cs.shape, generator=torch.Generator(device=dev).manual_seed(SEED + 50),
                      device=dev)
     times["merge, random scores"] = _median_ms(lambda: T._topk_pad(cr, ci, K))
@@ -3291,10 +3278,8 @@ def phase_ties_sharded(sharded, deleted, T, tag):
     T.LAUNCHES["lane_topk_acc"] = 0
     dist, got = sharded.search_arrays(q, K)
     _sync()
-    # once a cell, and once more in each cell whose tie check found equal
-    # scores at its cut (`sharded_flat_topk` repeats that cell's scan)
-    launched = T.LAUNCHES["lane_topk_acc"]
-    if not 4 <= launched <= 8:
+    launched = T.LAUNCHES["lane_topk_acc"]  # once a cell
+    if launched != 4:
         raise AssertionError(f"phase13e: K1 launched {launched} times")
     kernel = T.fused_flat_topk
     T.fused_flat_topk = T._fused_flat_topk_plain
@@ -3308,7 +3293,7 @@ def phase_ties_sharded(sharded, deleted, T, tag):
     if not set(got[0].tolist()) <= set(pks):
         raise AssertionError(f"phase13e: a hit that is no copy: {got[0]}")
     print(f"phase13e sharded (1, 4) B=8 over {rows}-row stripes, {len(pks)} copies of one row "
-          f"in all 4: K1 {launched} launches (4 cells, then the cells with ties again), hits "
+          f"in all 4: K1 {launched} launches (once a cell), hits "
           f"and order equal to plain; first row "
           f"{got[0].tolist()} {tag}", flush=True)
 

@@ -79,7 +79,7 @@ def test_signed_zeros_order_as_reference(select_form):
 
 
 @pytest.mark.parametrize("shape,k", [((3, 50), 7), ((2, 4, 300), 10), ((5, 1000), 40),
-                                     ((2, 64), 64)])
+                                     ((2, 64), 64), ((4, 5000), 100), ((2, 3, 2000), 1)])
 def test_helper_matches_lax_top_k(select_form, shape, k):
     # few distinct values, so most of each row ties: +-0.0, +-inf, +-NaN
     rng = np.random.default_rng(sum(shape) + k)
@@ -90,6 +90,17 @@ def test_helper_matches_lax_top_k(select_form, shape, k):
     jv, jp = _lax_top_k(x, k)
     np.testing.assert_array_equal(p.numpy(), jp)
     _same_bits(v, jv)
+
+
+def test_misses_do_not_make_a_search_row_unsure():
+    # equal scores at or below the miss floor (masked, deleted, padded
+    # rows) leave torch.topk's answer standing; equal hits do not
+    s = torch.tensor([[3.0, 2.0, NEG_INF, NEG_INF, NEG_INF, NEG_INF],
+                      [3.0, 2.0, 2.0, 1.0, NEG_INF, NEG_INF]])
+    _, _, unsure = ttopk._select_fast(s, 3, ttopk.MISS_FLOOR)
+    assert unsure.tolist() == [False, True]
+    _, _, unsure = ttopk._select_fast(s, 3)
+    assert unsure.tolist() == [True, True]
 
 
 # --------------------------------------------------------------------------
@@ -142,23 +153,17 @@ def test_k1_split_merge_keeps_reference_order(select_form, dtype, per, k):
     assert_topk_equal(ts[:3], ti[:3], js, ji, TOL[dtype])
     if k >= 10:  # more tied copies than k: the key decides the set
         assert (np.asarray(js)[:, :k] == np.asarray(js)[:, :1]).all()
-    # the check deferred to a caller: the ties are flagged, not resolved
-    with ttopk.deferred_tie_check() as ties:
-        ttopk._merge_split_lists(out_s, out_i, t_cands, k)
-    assert ties.unsure(3) or k > t_cands
 
 
-def test_deferred_check_passes_distinct_scores():
-    # no equal scores: the fast answer stands and nothing is flagged
+def test_split_merge_distinct_scores():
+    # no equal scores: the order is the scores' alone
     jx, tx, alpha = _dup_scan(145, 3, 18, "bfloat16", "l2")
     q, c, bias, scale = tx
     _, blk_b, t_cands, _ = ttopk._acc_plan(q, c, 10, None)
     qp = ttopk._pad_queries(-q, blk_b, c.dtype)  # away from the copies
     cs, ci = ttopk._block_cands_plain(qp, c, bias, scale, alpha, BLK)
     out_s, out_i = _kernel_lists(cs, ci, 2, t_cands)
-    with ttopk.deferred_tie_check() as ties:
-        ts, ti = ttopk._merge_split_lists(out_s, out_i, t_cands, 10)
-    assert not ties.unsure(3)
+    ts, ti = ttopk._merge_split_lists(out_s, out_i, t_cands, 10)
     js, ji = jtopk.fused_flat_topk(-jx[0], jx[1], jx[2], k=10, alpha=alpha)
     assert_topk_equal(ts[:3], ti[:3], js, ji, TOL["bfloat16"])
 
@@ -319,6 +324,20 @@ def test_hybrid_slot_mask(select_form, fused_small, mode, b):
     mask[[7, 35, 95, 140, 215]] = False
     q = np.repeat((x[7] + np.float32(0.05))[None], b, 0)
     _assert_search_equal(j, t, q, 8, TOL["bfloat16"], mode=mode, slot_mask=mask)
+
+
+@pytest.mark.parametrize("b", [1, 40])
+@pytest.mark.parametrize("mode", ["exact", "auto", "fused"])
+def test_filter_passes_fewer_than_k(select_form, fused_small, mode, b):
+    # 5 live rows, 3 of them copies, under k = 8: the misses (NEG_INF,
+    # all equal) fill the rest and come back as slot -1
+    x = _motivation_rows()
+    j, t = _flat_pair("l2", "bfloat16", x)
+    mask = np.zeros(j.corpus.capacity, bool)
+    mask[[3, 20, 7, 200, 35]] = True
+    q = np.repeat((x[7] + np.float32(0.05))[None], b, 0)
+    pks = _assert_search_equal(j, t, q, 8, TOL["bfloat16"], mode=mode, slot_mask=mask)
+    assert pks[0][:3].tolist() == [8, 21, 36]
 
 
 # --------------------------------------------------------------------------

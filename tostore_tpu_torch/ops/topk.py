@@ -54,9 +54,6 @@ TF32 off, as torch does by default.
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
-
 import torch
 
 from . import _kernels
@@ -114,10 +111,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # Selection in the reference's order
 # --------------------------------------------------------------------------
 
-# Up to this many scores a selection runs its exact form directly (no
+# Up to this many scores a selection ranks one int64 key a candidate (no
 # host sync); above, torch.topk selects and only rows with ties reselect.
 EXACT_SELECT_MAX = 1 << 20
 _LOW32 = 0xFFFFFFFF
+# A search's misses score at or below this (ops/distance.py
+# `finalize_results`): their order among themselves is never read.
+MISS_FLOOR = NEG_INF / 2
 
 
 def _order_key(s: torch.Tensor) -> torch.Tensor:
@@ -138,92 +138,51 @@ def _select_exact(s: torch.Tensor, k: int):
     return torch.gather(s, -1, pos), pos
 
 
-def _select_fast(s: torch.Tensor, k: int):
+def _select_fast(s: torch.Tensor, k: int, floor: float | None = None):
     """(values, positions, unsure [...] bool) of the top-k along the last
     axis, k < N: torch.topk's k + 1 best, in its order. Where they are
     strictly decreasing (IEEE `>`, false for equal values, -0.0 against
     0.0, and NaN), the first k are the exact answer: no two of them tie,
     and every candidate outside scores below the k-th. Other rows are
-    unsure."""
+    unsure. With a floor, equal scores at or below it (a search's misses)
+    do not make a row unsure."""
     v, p = torch.topk(s, k + 1, dim=-1)
-    unsure = ~(v[..., :-1] > v[..., 1:]).all(dim=-1)
-    return v[..., :k], p[..., :k], unsure
+    tie = ~(v[..., :-1] > v[..., 1:])
+    if floor is not None:
+        tie &= ~(v[..., 1:] <= floor)
+    return v[..., :k], p[..., :k], tie.any(dim=-1)
 
 
-def _select(s: torch.Tensor, k: int):
-    """`top_k_first` without its last check: (values, positions, unsure
-    rows), the exact form (unsure None) up to EXACT_SELECT_MAX scores or
-    where k covers the axis."""
-    n = s.shape[-1]
-    kk = min(k, n)
-    if s.numel() <= EXACT_SELECT_MAX or kk >= n or kk == 0:
-        return (*_select_exact(s, kk), None)
-    return _select_fast(s, kk)
-
-
-class TieCheck:
-    """The unsure rows of the selections made under `deferred_tie_check()`:
-    each records a bool mask over its first axis instead of syncing."""
-
-    def __init__(self):
-        self.masks = []
-
-    def unsure(self, n: int | None = None) -> bool:
-        """Whether a selection left one of the first n rows (all, for None)
-        unsure: one host sync; the caller then repeats its work outside
-        the context."""
-        return any(bool(m[:n].any()) for m in self.masks)
-
-
-_TIE_CHECK: contextvars.ContextVar = contextvars.ContextVar("tie_check", default=None)
-
-
-@contextlib.contextmanager
-def deferred_tie_check():
-    """Selections inside leave their unsure rows (`_select_fast`) in the
-    yielded TieCheck instead of syncing to reselect them, so that a caller
-    that reads its results back anyway checks once, after all its work is
-    queued, and repeats the call outside the context where
-    `TieCheck.unsure` says so. Per thread (a context variable)."""
-    check = TieCheck()
-    token = _TIE_CHECK.set(check)
-    try:
-        yield check
-    finally:
-        _TIE_CHECK.reset(token)
-
-
-def _unsure_rows(unsure: torch.Tensor | None):
+def _unsure_rows(unsure: torch.Tensor):
     """The flat indices of the unsure rows, or None: one host sync, and a
-    second only where some row is unsure. Under `deferred_tie_check()` the
-    rows are recorded and none are returned."""
-    if unsure is None:
-        return None
-    check = _TIE_CHECK.get()
-    if check is not None:
-        check.masks.append(unsure.reshape(unsure.shape[0], -1).any(dim=1)
-                           if unsure.dim() else unsure.reshape(1))
-        return None
+    second only where some row is unsure."""
     if not bool(unsure.any()):
         return None
     return unsure.reshape(-1).nonzero().flatten()
 
 
-def top_k_first(s: torch.Tensor, k: int):
+def top_k_first(s: torch.Tensor, k: int, floor: float | None = None):
     """Top-k along the last axis with `jax.lax.top_k`'s contract: scores
     descending in IEEE totalOrder (0.0 before -0.0, NaN first), and among
     equal scores the lower position first, both for membership at the k-th
     place and for order. `torch.topk` fixes no order among equal values:
-    its answer stands where the k + 1 best are strictly decreasing, and
-    the other rows select again over unique keys (score, position), one
-    int64 each. Returns (values, positions), min(k, N) wide."""
-    v, p, unsure = _select(s, k)
+    up to EXACT_SELECT_MAX scores the selection ranks unique (score,
+    position) keys, one int64 each; above, torch.topk's answer stands
+    where its k + 1 best are strictly decreasing, and only the other rows
+    select again over the keys (one host sync). A floor (MISS_FLOOR for a
+    search) leaves the order of the scores at or below it to torch.topk.
+    Returns (values, positions), min(k, N) wide."""
+    n = s.shape[-1]
+    kk = min(k, n)
+    if s.numel() <= EXACT_SELECT_MAX or kk >= n or kk == 0:
+        return _select_exact(s, kk)
+    v, p, unsure = _select_fast(s, kk, floor)
     rows = _unsure_rows(unsure)
     if rows is not None:
         lead = s.shape[:-1]
-        ev, ep = _select_exact(s.reshape(-1, s.shape[-1])[rows], v.shape[-1])
-        v = v.reshape(-1, v.shape[-1]).index_copy(0, rows, ev).reshape(*lead, -1)
-        p = p.reshape(-1, p.shape[-1]).index_copy(0, rows, ep).reshape(*lead, -1)
+        ev, ep = _select_exact(s.reshape(-1, n)[rows], kk)
+        v = v.reshape(-1, kk).index_copy(0, rows, ev).reshape(*lead, kk)
+        p = p.reshape(-1, kk).index_copy(0, rows, ep).reshape(*lead, kk)
     return v, p
 
 
@@ -232,7 +191,7 @@ def _topk_pad(flat_s, flat_i, k: int):
     rows themselves), ties to the lower position (`top_k_first`); a k
     above the candidate width pads with NEG_INF / index 0."""
     kk = min(k, flat_s.shape[1])
-    top_s, pos = top_k_first(flat_s, kk)
+    top_s, pos = top_k_first(flat_s, kk, MISS_FLOOR)
     top_i = pos if flat_i is None else torch.gather(flat_i, 1, pos)
     if kk < k:
         top_s = torch.nn.functional.pad(top_s, (0, k - kk), value=NEG_INF)
@@ -254,37 +213,23 @@ def _scores(qc, cblk, bblk, sblk, alpha):
 
 def flat_topk_xla(q, corpus, bias, alpha, k, row_scale=None):
     """Exact scan. Chunks the corpus so peak memory stays ~[B, EXACT_CHUNK]
-    while `top_k_first` does the selection, ties to the lower row. Returns
-    (scores [B, k] f32 desc, idx [B, k] int64)."""
+    while `top_k_first` does the selection, ties to the lower row (the
+    chunks' candidates lie chunk by chunk, as the reference's scan stacks
+    them). Returns (scores [B, k] f32 desc, idx [B, k] int64)."""
     n = corpus.shape[0]
     qc = q.to(score_dtype(corpus.dtype))
     if n <= 2 * EXACT_CHUNK or n % EXACT_CHUNK != 0:
         return _topk_pad(_scores(qc, corpus, bias, row_scale, alpha), None, k)
-    top_s, top_i, unsure = _exact_chunks(qc, corpus, bias, row_scale, alpha, k, _select)
-    rows = _unsure_rows(unsure)  # one host sync for all chunks
-    if rows is not None:
-        es, ei, _ = _exact_chunks(qc[rows], corpus, bias, row_scale, alpha, k,
-                                  lambda s, kk: (*_select_exact(s, kk), None))
-        top_s, top_i = top_s.index_copy(0, rows, es), top_i.index_copy(0, rows, ei)
-    return top_s, top_i
-
-
-def _exact_chunks(qc, corpus, bias, row_scale, alpha, k, select):
-    """Each EXACT_CHUNK chunk's top-kk by `select` (-> values, positions,
-    unsure rows or None), then the top-k of them, laid out chunk by chunk
-    as the reference's scan stacks them: (scores, rows, unsure rows)."""
     kk = min(k, EXACT_CHUNK)
-    parts_s, parts_i, unsure = [], [], None
-    for off in range(0, corpus.shape[0], EXACT_CHUNK):
+    parts_s, parts_i = [], []
+    for off in range(0, n, EXACT_CHUNK):
         sl = slice(off, off + EXACT_CHUNK)
         s = _scores(qc, corpus[sl], bias[sl],
                     row_scale[sl] if row_scale is not None else None, alpha)
-        ts, ti, u = select(s, kk)
+        ts, ti = top_k_first(s, kk, MISS_FLOOR)
         parts_s.append(ts)
         parts_i.append(ti + off)
-        if u is not None:
-            unsure = u if unsure is None else unsure | u
-    return (*_topk_pad(torch.cat(parts_s, 1), torch.cat(parts_i, 1), k), unsure)
+    return _topk_pad(torch.cat(parts_s, 1), torch.cat(parts_i, 1), k)
 
 
 # --------------------------------------------------------------------------
@@ -432,24 +377,25 @@ def _list_width(per: int, t_cands: int) -> int:
 
 
 def _merge_split_lists(out_s, out_i, t_cands: int, k: int):
-    """K1's per-split lists [B_pad, splits * W, 128] -> the reference's
-    top-k (scores, rows) [B_pad, k]: the top-k of its per-lane top-T lists
-    by (score, t * 128 + lane). A split holds its blocks' per-lane
-    candidates in insertion order (W = 2 * blocks, unsorted) or its sorted
-    top-T, equal scores in insertion order (W = T); splits are contiguous
-    block ranges in ascending order, so a lane's lists side by side are in
+    """K1's per-split lists [B, splits * W, 128] -> the reference's top-k
+    (scores, rows) [B, k]: the top-k of its per-lane top-T lists by
+    (score, t * 128 + lane). A split holds its blocks' per-lane candidates
+    in insertion order (W = 2 * blocks, unsorted) or its sorted top-T,
+    equal scores in insertion order (W = T); splits are contiguous block
+    ranges in ascending order, so a lane's lists side by side are in
     insertion order among equal scores, and its top-T of them by (score,
     position) is the reference's list (`_lane_top_t`).
 
-    Where the k + 1 best of all lists are strictly decreasing and k <= T,
-    they are the answer as they stand (`_select_fast`): no lane holds more
-    than k of them, so none is cut at T, and with no equal scores the
-    order is the score's. Other rows take the per-lane merge."""
+    Where the k + 1 best of all lists are strictly decreasing (misses
+    aside) and k <= T, they are the answer as they stand (`_select_fast`):
+    no lane holds more than k of them, so none is cut at T, and with no
+    equal scores the order is the score's. The other rows (one host sync
+    finds them) take the per-lane merge."""
     b = out_s.shape[0]
     flat_s, flat_i = out_s.reshape(b, -1), out_i.reshape(b, -1)
     if k > t_cands or k >= flat_s.shape[1]:
         return _lane_merge(out_s, out_i, t_cands, k)
-    top_s, pos, unsure = _select_fast(flat_s, k)
+    top_s, pos, unsure = _select_fast(flat_s, k, MISS_FLOOR)
     top_i = torch.gather(flat_i, 1, pos).long()
     rows = _unsure_rows(unsure)
     if rows is not None:
@@ -589,8 +535,7 @@ def fused_flat_topk(q, corpus, bias, *, k: int, alpha: float = 1.0,
                                       blk_n=blk_n, row_scale=row_scale)
     qp = _pad_queries(q, blk_b, corpus.dtype)
     out_s, out_i = _lane_topk_acc_cuda(qp, corpus, bias, row_scale, alpha, blk_n, t_cands)
-    top_s, top_i = _merge_split_lists(out_s, out_i, t_cands, k)
-    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+    return _merge_split_lists(out_s[: q.shape[0]], out_i[: q.shape[0]], t_cands, k)
 
 
 def _fused_flat_topk_plain(q, corpus, bias, *, k: int, alpha: float = 1.0,
@@ -600,9 +545,8 @@ def _fused_flat_topk_plain(q, corpus, bias, *, k: int, alpha: float = 1.0,
     blk_n, blk_b, t_cands, _ = _acc_plan(q, corpus, k, blk_n)
     qp = _pad_queries(q, blk_b, corpus.dtype)
     cs, ci = _block_cands_plain(qp, corpus, bias, row_scale, alpha, blk_n)
-    cs, ci = _running_top_t(cs, ci, t_cands)
-    top_s, top_i = _topk_pad(cs, ci, k)
-    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+    cs, ci = _running_top_t(cs[: q.shape[0]], ci[: q.shape[0]], t_cands)
+    return _topk_pad(cs, ci, k)
 
 
 def _fused_block_emit(q, corpus, bias, *, k, alpha, blk_n, row_scale=None):
@@ -613,8 +557,7 @@ def _fused_block_emit(q, corpus, bias, *, k, alpha, blk_n, row_scale=None):
                                        blk_n=blk_n, row_scale=row_scale)
     qp = _pad_queries(q, min(MAX_BLK_B, round_up(q.shape[0], 8)), corpus.dtype)
     cs, ci = _lane_topk_emit_cuda(qp, corpus, bias, row_scale, alpha, blk_n)
-    top_s, top_i = _topk_pad(cs, ci, k)
-    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+    return _topk_pad(cs[: q.shape[0]], ci[: q.shape[0]], k)
 
 
 def _fused_block_emit_plain(q, corpus, bias, *, k, alpha, blk_n, row_scale=None):
@@ -623,8 +566,7 @@ def _fused_block_emit_plain(q, corpus, bias, *, k, alpha, blk_n, row_scale=None)
         raise ValueError(f"corpus must be block-padded: N={corpus.shape[0]} (blk {blk_n})")
     qp = _pad_queries(q, min(MAX_BLK_B, round_up(q.shape[0], 8)), corpus.dtype)
     cs, ci = _block_cands_plain(qp, corpus, bias, row_scale, alpha, blk_n)
-    top_s, top_i = _topk_pad(cs, ci, k)
-    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+    return _topk_pad(cs[: q.shape[0]], ci[: q.shape[0]], k)
 
 
 # --------------------------------------------------------------------------
@@ -805,8 +747,7 @@ def _fused_group_emit(q, corpus, bias, *, k, alpha, blk_n, gsz=None, row_scale=N
     blk_b, gsz = _group_plan(q, corpus, blk_n, gsz)
     qp = _pad_queries(q, blk_b, corpus.dtype)
     cs, ci = _lane_topk_group_cuda(qp, corpus, bias, row_scale, alpha, blk_n, gsz)
-    top_s, top_i = _topk_pad(cs, ci, k)
-    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+    return _topk_pad(cs[: q.shape[0]], ci[: q.shape[0]], k)
 
 
 def _fused_group_emit_plain(q, corpus, bias, *, k, alpha, blk_n, gsz=None, row_scale=None):
@@ -814,8 +755,7 @@ def _fused_group_emit_plain(q, corpus, bias, *, k, alpha, blk_n, gsz=None, row_s
     blk_b, gsz = _group_plan(q, corpus, blk_n, gsz)
     qp = _pad_queries(q, blk_b, corpus.dtype)
     cs, ci = _group_cands_plain(qp, corpus, bias, row_scale, alpha, blk_n, gsz)
-    top_s, top_i = _topk_pad(cs, ci, k)
-    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+    return _topk_pad(cs[: q.shape[0]], ci[: q.shape[0]], k)
 
 
 def pipe_topk(q, corpus, bias, *, k, alpha=1.0, blk_n=2048, blk_b=256, gsz=None):
@@ -832,8 +772,7 @@ def pipe_topk(q, corpus, bias, *, k, alpha=1.0, blk_n=2048, blk_b=256, gsz=None)
     blk_b, gsz = _pipe_plan(q, corpus, blk_n, blk_b, gsz)
     qp = _pad_queries(q, blk_b, corpus.dtype)
     cs, ci = _lane_topk_group_pipe_cuda(qp, corpus, bias, alpha, blk_n, gsz)
-    top_s, top_i = _topk_pad(cs, ci, k)
-    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+    return _topk_pad(cs[: q.shape[0]], ci[: q.shape[0]], k)
 
 
 def _pipe_topk_plain(q, corpus, bias, *, k, alpha=1.0, blk_n=2048, blk_b=256, gsz=None):
@@ -841,8 +780,7 @@ def _pipe_topk_plain(q, corpus, bias, *, k, alpha=1.0, blk_n=2048, blk_b=256, gs
     blk_b, gsz = _pipe_plan(q, corpus, blk_n, blk_b, gsz)
     qp = _pad_queries(q, blk_b, corpus.dtype)
     cs, ci = _group_cands_plain(qp, corpus, bias, None, alpha, blk_n, gsz)
-    top_s, top_i = _topk_pad(cs, ci, k)
-    return top_s[: q.shape[0]], top_i[: q.shape[0]]
+    return _topk_pad(cs[: q.shape[0]], ci[: q.shape[0]], k)
 
 
 # --------------------------------------------------------------------------

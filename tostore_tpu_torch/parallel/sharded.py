@@ -79,22 +79,14 @@ def sharded_flat_topk(q, corpus: Striped, bias: Striped, *, k: int, alpha: float
     if b % dp:
         raise ValueError(f"{b} queries do not split over dp={dp}")
     bl = b // dp
-    scans, found, checks = {}, {}, {}
+    local = {}
     for dpi, s, dev in mesh.owned:
         qb = _as_tensor(q[dpi * bl:(dpi + 1) * bl], dev)
         rs = row_scale.part(dpi, s) if row_scale is not None else None
-        scans[(dpi, s)] = lambda qb=qb, dpi=dpi, s=s, rs=rs: T.flat_search(
-            qb, corpus.part(dpi, s), bias.part(dpi, s), k=min(k, n_local), alpha=alpha,
-            mode=mode, row_scale=rs)
-        # every cell's scan is queued before a tie check syncs
-        with T.deferred_tie_check() as checks[(dpi, s)]:
-            found[(dpi, s)] = scans[(dpi, s)]()
-    local = {}
-    for key, ties in checks.items():
-        # equal scores at a cut (rare): that cell's scan again, checked inline
-        ts, ti = scans[key]() if ties.unsure(bl) else found[key]
+        ts, ti = T.flat_search(qb, corpus.part(dpi, s), bias.part(dpi, s),
+                               k=min(k, n_local), alpha=alpha, mode=mode, row_scale=rs)
         ts, ti = _pad_local(ts, ti, k)
-        local[key] = (ts, ti + key[1] * n_local)
+        local[(dpi, s)] = (ts, ti + s * n_local)
     return _merge_local_topk(local, k, mesh)
 
 

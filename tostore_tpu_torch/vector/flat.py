@@ -123,20 +123,12 @@ class FlatVectorIndex:
 
         qt, qsq, _ = self._prep_queries(q)
         bias, alpha, row_scale = self._bias_alpha(slot_mask)
-
-        def run():
-            scores, idx = T.flat_search(
-                qt, c.vectors, bias, k=k, alpha=alpha, mode=mode, row_scale=row_scale
-            )
-            d_dev, s_dev = D.finalize_results(self.metric, scores, idx, qsq)
-            return d_dev.cpu().numpy().astype(np.float32), s_dev.cpu().numpy().astype(np.int64)
-
-        # the selections' tie check rides on this readback; equal scores at
-        # a cut (rare) repeat the search with the check inline
-        with T.deferred_tie_check() as ties:
-            dist_np, idx_np = run()
-        if ties.unsure(qt.shape[0]):
-            dist_np, idx_np = run()
+        scores, idx = T.flat_search(
+            qt, c.vectors, bias, k=k, alpha=alpha, mode=mode, row_scale=row_scale
+        )
+        d_dev, s_dev = D.finalize_results(self.metric, scores, idx, qsq)
+        dist_np = d_dev.cpu().numpy().astype(np.float32)
+        idx_np = s_dev.cpu().numpy().astype(np.int64)
         pks = c.pks_for_slots(idx_np)
         return dist_np, idx_np, pks
 

@@ -34,7 +34,7 @@ from ..models.results import VectorSearchResult
 from ..ops import distance as D
 from ..ops.ivfprobe import adc_bucket_scores, adc_kernel_supported, bucket_probe_scores
 from ..ops.runtime import NEG_INF, f32_dot, round_up, score_dtype
-from ..ops.topk import top_k_first
+from ..ops.topk import MISS_FLOOR, top_k_first
 from .corpus import DeviceCorpus
 from .flat import _METRIC_ALIASES, FlatVectorIndex
 from .pq import (
@@ -89,8 +89,9 @@ def _rescore(q, cand, vectors, scales, sq_norms, alpha):
 def _final_topk(s, slots, k: int):
     """Top-k of [B, R] candidate scores in the reference's candidate order
     (probes in probe order, each bucket in row order; or the re-rank pool
-    in ADC order), ties to the earlier candidate; -> (scores, slots)."""
-    ts, ti = top_k_first(s, k)
+    in ADC order), ties to the earlier candidate, misses in any order;
+    -> (scores, slots)."""
+    ts, ti = top_k_first(s, k, MISS_FLOOR)
     return ts, torch.gather(slots, 1, ti)
 
 
@@ -145,7 +146,7 @@ def _ivf_probe_scan_pq(q, q_raw, centroids, slice_cluster, cents_unpad, slice_bi
         s_adc = (-d_adc + offs[b][:, None]).reshape(nprobe * cap)
         ok = (slots >= 0) & valid[safe]
         s_adc = torch.where(ok, s_adc, torch.full_like(s_adc, NEG_INF))
-        _, ri = top_k_first(s_adc, r)
+        _, ri = top_k_first(s_adc, r, MISS_FLOOR)
         cand = slots[ri][None, :]
         csafe = torch.clamp(cand, min=0)
         s = _rescore(q[b : b + 1], csafe, vectors, scales, sq_norms, alpha)
@@ -174,7 +175,7 @@ def _ivf_probe_scan_pq_contig(q, q_raw, centroids, slice_cluster, cents_unpad, s
     s_adc = (s_adc + offs[:, :, None]).reshape(b, nprobe * cap)
     slots = buckets_slots[probe].reshape(b, nprobe * cap)
     r = min(rerank, nprobe * cap)
-    cand_adc, ri = top_k_first(s_adc, r)
+    cand_adc, ri = top_k_first(s_adc, r, MISS_FLOOR)
     cand = torch.gather(slots, 1, ri)  # [B, R]
     csafe = torch.clamp(cand, min=0)
     s = _rescore(q, csafe, vectors, scales, sq_norms, alpha)
