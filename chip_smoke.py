@@ -28,7 +28,11 @@ imports nothing of JAX or tostore_tpu. Phases:
      equal what the dispatch rule says (auto at B = 256 among K2's). Top-10
      agreement with mode="exact" >= 0.999, the distances of the pks both
      return within the bf16 tolerance of the exact ones, and no deleted pk
-     may come back.
+     may come back; select_topk (the final selection) must launch. Then
+     the device part of the l2 index's calls (`flat_search` auto at B = 1,
+     8, 32, 256: K1 / K2 with their selections) and K5 with its merge at B
+     = 256 run once under torch.cuda.set_sync_debug_mode("error"): no host
+     sync.
   3. K1 and K2 against their plain versions on the main path's own inputs
      (every index's corpus, bias and scales, at capacity 1,048,576 a CTA
      folds several blocks), with the dtype's tolerance; then median ms per
@@ -62,7 +66,9 @@ imports nothing of JAX or tostore_tpu. Phases:
      16, packed) and 96 (K = 256). Each index is loaded, trained (timed),
      1% deleted and given 1,000 more rows (the append path). With every
      launch counter zeroed: search_arrays at B = 1, 8, 64 mode="probe",
-     B = 8 auto, and one search(); K3 and K4 must each launch. Recall@10
+     B = 8 auto, and one search(); K3, K4 and select_topk must each
+     launch; the host syncs of a raw and a PQ probe call at B = 8 under
+     set_sync_debug_mode("warn") are printed (a finding). Recall@10
      against mode="exact" >= 0.95 raw / 0.85 PQ, no deleted pk back, and
      shared pks' scores within the bf16 tolerance. Then K3 and K4 against
      their plain versions on the indexes' own buckets, codes, bias and
@@ -229,16 +235,21 @@ imports nothing of JAX or tostore_tpu. Phases:
      f32 ones, K5 and K6 at B = 256 (bf16, f32), IVF probe B = 8 (K3, K4);
      every kernel must launch. (c) Each route against its plain version on
      the same tensors: the same hits in the same order, no tolerance on
-     order (scores within the dtype's); search_arrays' slots are the
-     kernel's; the IVF probes against the same search with K3 / K4's plain
-     versions swapped in. (d) The final top-10 over K2's [256, 65,536]
-     candidates: `_topk_pad` (torch.topk of k + 1, a host sync for the
-     rows whose k + 1 best are not strictly decreasing, their reselect
-     over one int64 key a candidate) beside torch.topk alone, the library
-     call, on the copied rows (every row has ties at its cut: all
-     reselect) and on random scores; and the int64-key form alone. (e) One (1, 4) sharded B = 8 call
-     with copies in all 4 stripes against the same call through K1's
-     plain version.
+     order (scores within the dtype's), the plain versions with their
+     selections plain too (`_plain_selection`); search_arrays' slots are
+     the kernel's; the IVF probes against the same search with K3 / K4's
+     plain versions swapped in. (d) select_topk against its plain version
+     `_select_exact`, bit for bit in values and positions, on K2's real
+     [256, 65,536] candidates, K1's per-lane lists and their final at B =
+     32, an exact-scan chunk and K5's candidates (all on the copied rows),
+     and one input a route at full width (`SELECT_SYNTH`: IVF probe
+     selection, final top-k and re-rank pools at k = 10 and 100, k-means
+     assignment, the sharded merge, the PQ scan, all-equal rows, +-0.0 /
+     +-inf / NaN, misses, k = N, k above SELECT_CAP); then its median ms
+     over K2's candidates, on the copies and on random scores, beside
+     torch.topk (the library call), `_select_exact` and its bytes bound.
+     (e) One (1, 4) sharded B = 8 call with copies in all 4 stripes
+     against the same call through K1's plain version.
 
 Prints the card's name and power limit, the torch and CUDA versions, the
 build time, a JSON line of the kernels (each with its launches on its
@@ -250,17 +261,20 @@ phase 9, sharded_launches, those of phase 10, and bench_launches, those
 of phase 11's script processes summed, suite_launches, those of
 phase 12a's child, entry_launches, K1's in phase 12b, and tie_launches, those
 of phase 13b; the six kernels, then
-their f32 forms and the IVF
-grouping pre-pass), and last `{"ok": true, ...}`. Any failure raises
-and exits non-zero.
+their f32 forms, the IVF grouping pre-pass and the final selection
+select_topk, with its launches in phases 2, 6, 8, 9, 10, 12b and 13b and
+its times on random scores beside those on the copies), and last
+`{"ok": true, ...}`. Any failure raises and exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -474,6 +488,9 @@ def phase_main_path(idxs, side, deleted, T):
         if launches[key] <= 0 or launches[key] != want[key]:
             raise AssertionError(f"kernel {key}: {launches[key]} launches on the main path, "
                                  f"expected {want[key]}")
+    if launches["select_topk"] <= 0:
+        raise AssertionError("select_topk was not launched on the main path")
+    _no_host_sync(idxs["l2"], queries, T)
 
     agree = total = 0
     dist_err = 0.0
@@ -506,6 +523,49 @@ def phase_main_path(idxs, side, deleted, T):
     if rate < AGREEMENT_MIN:
         raise AssertionError(f"top-{K} agreement {rate} < {AGREEMENT_MIN}")
     return launches, queries
+
+
+SYNC_FREE_B = (1, 8, 32, 256)
+
+
+def _no_host_sync(idx, queries, T):
+    """The device part of phase 2's flat calls (`flat_search` auto: K1 at B
+    = 1, 8, 32, K2 at 256, each with its selection) and K5 with its merge
+    at B = 256, once each under torch.cuda.set_sync_debug_mode("error"): a
+    host sync raises. The queries' upload and the results' copy to the host
+    stay outside, as the caller's."""
+    c = idx.corpus.vectors
+    bias, alpha, scale = idx._bias_alpha(None)
+    qts = {b: idx._prep_queries(queries[b])[0] for b in SYNC_FREE_B}
+    calls = [(f"flat_search auto B={b}", lambda b=b: T.flat_search(
+        qts[b], c, bias, k=K, alpha=alpha, row_scale=scale)) for b in SYNC_FREE_B]
+    calls.append(("_fused_group_emit B=256", lambda: T._fused_group_emit(
+        qts[256], c, bias, k=K, alpha=alpha, blk_n=BLK_N, row_scale=scale)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _, fn in calls:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("phase2 no host sync (set_sync_debug_mode('error')) in: "
+          + ", ".join(name for name, _ in calls), flush=True)
+
+
+def _count_syncs(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): the number of
+    synchronizing CUDA operations it made."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
 
 
 def _check_shared_dists(metric, q, pks, dist, epks, edist, shift=None):
@@ -977,9 +1037,14 @@ def phase_ivf_main_path(idxs, deleted, queries, T, IP):
     torch.cuda.synchronize()
     launches = {**T.LAUNCHES, **IP.LAUNCHES}
     print(f"phase6 launches on the IVF main path: {launches}", flush=True)
-    for key in IP.LAUNCHES:
+    for key in [*IP.LAUNCHES, "select_topk"]:
         if launches[key] <= 0:
             raise AssertionError(f"kernel {key} was not launched on the IVF main path")
+    for name in ("raw", "pq192"):  # a finding, not a condition
+        n_sync = _count_syncs(lambda: idxs[name].search_arrays(queries[8], K, mode="probe"))
+        print(f"phase6 {name} search_arrays probe B=8: {n_sync} host syncs under "
+              f"set_sync_debug_mode('warn') (the queries' upload and the results' copy to the "
+              f"host among them)", flush=True)
 
     for name, idx in idxs.items():
         hit = total = 0
@@ -1561,7 +1626,7 @@ def phase_hybrid(flat, f32_idx, deleted, ivf_idxs, ivf_deleted, ivf_queries, T, 
     torch.cuda.synchronize()
     launches = {**T.LAUNCHES, **IP.LAUNCHES}
     print(f"phase8 launches on the hybrid path: {launches}", flush=True)
-    for key in HYBRID_KERNELS:
+    for key in (*HYBRID_KERNELS, "select_topk"):
         if launches[key] <= 0:
             raise AssertionError(f"kernel {key} was not launched on the hybrid path")
 
@@ -1764,6 +1829,9 @@ def phase_engine(T, IP, smi, k1_kernel_ms):
         serial.append(db.vector_search("docs", "emb", q, top_k=K))
         ms.append((time.perf_counter() - t0) * 1e3)
     launches["lane_topk_acc"] = T.LAUNCHES["lane_topk_acc"]
+    launches["select_topk"] = T.LAUNCHES["select_topk"]  # K1's two selections a search
+    if launches["select_topk"] <= 0:
+        raise AssertionError("phase9: select_topk was not launched by vector_search")
     direct = []  # the table's index alone: what the engine's layers add is the difference
     for q in queries[:ENGINE_QUERIES]:
         t0 = time.perf_counter()
@@ -2138,6 +2206,9 @@ def phase_sharded_flat(flat, deleted, T, IP, errs, tag):
         calls = [(torch.bfloat16, b // idx.mesh.shape["dp"] or 1, "auto") for b in SHARD_FLAT_B]
         want = {k: 4 * v for k, v in _flat_launches(T, calls).items()}
         launches[name] = _want_launches(T.LAUNCHES, want, f"phase10a {name}")
+        launches[name]["select_topk"] = T.LAUNCHES["select_topk"]
+        if launches[name]["select_topk"] <= 0:
+            raise AssertionError(f"phase10a {name}: select_topk was not launched")
         agree = total = same_rows = 0
         dist_err = 0.0
         for b, (dist, pks) in got.items():
@@ -2301,6 +2372,7 @@ def phase_sharded_engine(T, IP, errs, tag):
         serial.append(_pks(db.vector_search("docs", "emb", q, top_k=K)))
         ms.append((time.perf_counter() - t0) * 1e3)
     launches["lane_topk_acc"] = T.LAUNCHES["lane_topk_acc"]
+    launches["select_topk"] = T.LAUNCHES["select_topk"]
     _want_launches(T.LAUNCHES, {"lane_topk_acc": 4 * len(queries)}, "phase10c flat table")
     agree = sum(len(set(got) & set(_pks(db.vector_search("docs", "emb", q, top_k=K,
                                                          mode="exact"))))
@@ -2942,13 +3014,13 @@ def phase_entry_points(T, IP, tag):
         db.close()
     finally:
         shutil.rmtree(path, ignore_errors=True)
-    k1 = T.LAUNCHES["lane_topk_acc"]
+    k1, sel = T.LAUNCHES["lane_topk_acc"], T.LAUNCHES["select_topk"]
     print(f"phase12b launches: K1 {k1} (every search above: the table is past MIN_FUSED_N "
-          f"= {T.MIN_FUSED_N}); the phase took {time.perf_counter() - t_phase:.1f} s {tag}",
-          flush=True)
-    if k1 <= 0:
-        raise AssertionError("phase12b: K1 never launched")
-    return {"lane_topk_acc": k1}
+          f"= {T.MIN_FUSED_N}), select_topk {sel}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
+    if k1 <= 0 or sel <= 0:
+        raise AssertionError(f"phase12b: K1 launched {k1} times, select_topk {sel}")
+    return {"lane_topk_acc": k1, "select_topk": sel}
 
 
 # --------------------------------------------------------------------------
@@ -3076,11 +3148,147 @@ def _plain_route(idx, q, b, T):
     return _pairs(idx, qt, b, T)[1][1]()
 
 
+@contextlib.contextmanager
+def _plain_selection(T):
+    """Within: every route's selection (`top_k_first`, by name in each
+    module that calls it) is the plain version, `_top_k_first_plain`, in
+    place of select_topk, so that a route's plain version is plain down to
+    its top-k."""
+    from tostore_tpu_torch.parallel import sharded
+    from tostore_tpu_torch.vector import ivf, pq
+
+    mods = (T, ivf, pq, sharded)
+    kept = [m.top_k_first for m in mods]
+    for m in mods:
+        m.top_k_first = T._top_k_first_plain
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, kept):
+            m.top_k_first = fn
+
+
+SELECT_FEW = (2.0, 1.0, 0.5, 0.0, -0.0, -1.0, float("inf"), -float("inf"), float("nan"),
+              -float("nan"))
+
+
+def _select_input(dev, shape, kind, seed, k):
+    """Scores for a selection's edge cases, made on the card: "random"
+    normal; "few" ten values (+-0.0, +-inf, +-NaN among them), so most of a
+    row ties; "copies" normal with each row's k-th best copied to 3k random
+    places; "misses" NEG_INF but k // 2 + 1 live scores a row; "equal" one
+    score everywhere."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "few":
+        vals = torch.tensor(SELECT_FEW, device=dev)
+        return vals[torch.randint(0, len(SELECT_FEW), shape, generator=g, device=dev)]
+    if kind == "equal":
+        return torch.full(shape, 0.75, device=dev)
+    x = torch.randn(shape, generator=g, device=dev)
+    flat = x.view(-1, shape[-1])
+    rows = torch.arange(flat.shape[0], device=dev)[:, None]
+    if kind == "copies":  # torch.topk builds the input; the port never calls it
+        kth = torch.topk(flat, k, dim=1).values[:, -1:]
+        flat[rows, torch.randint(0, shape[-1], (flat.shape[0], 3 * k), generator=g,
+                                 device=dev)] = kth
+    elif kind == "misses":
+        live = torch.randint(0, shape[-1], (flat.shape[0], k // 2 + 1), generator=g, device=dev)
+        keep = flat[rows, live]
+        flat.fill_(NEG_INF)
+        flat[rows, live] = keep
+    return x
+
+
+# One input a route of the selection (shape at full width, k, kind), beside
+# the real candidates of phase_select: the IVF probe selection (1,232
+# slices, nprobe 16; a fat cluster's slices tie), the raw final top-k and
+# the re-rank pool at k = 10 and 100 over 16 x 1,984 candidates, k-means
+# assignment (65,536 rows, C = 1,024, 3 choices), the sharded merge (4
+# shards x k), the PQ scan (500,000 codes), rows whose scores all tie,
+# +-0.0 / +-inf / NaN, misses, k = N (a lane list shorter than T) and a k
+# above SELECT_CAP.
+SELECT_SYNTH = [((64, 1232), 16, "few"), ((64, 31744), 10, "copies"),
+                ((64, 31744), 512, "copies"), ((8, 31744), 5100, "random"),
+                ((65536, 1024), 3, "random"), ((256, 40), 10, "copies"),
+                ((8, 500000), 10, "misses"), ((256, 65536), 10, "equal"),
+                ((256, 65536), 10, "few"), ((256, 65536), 10, "misses"),
+                ((4096, 16), 16, "few"), ((2, 20000), 9000, "copies")]
+
+
+def phase_select(dev, flat, queries, T, errs, tag):
+    """Phase 13d: select_topk against its plain version `_select_exact`, bit
+    for bit (values and positions), on the routes' real inputs from the
+    copied rows (K2's [256, 65,536] candidates, K1's per-lane lists and
+    their [B, 2,048] final at B = 32, an exact-scan chunk, K5's [256,
+    4,096]) and on SELECT_SYNTH; then the selection's time over K2's
+    candidates (CUDA events, median, in turns) on the copies and on random
+    scores, beside torch.topk (the library call), `_select_exact` and the
+    bytes bound. Returns the times."""
+    c = flat.corpus.vectors
+    bias, alpha, _ = flat._bias_alpha(None)
+    qt = flat._prep_queries(queries[256])[0]
+    cs, ci = T._lane_topk_emit_cuda(T._pad_queries(qt, 256, c.dtype), c, bias, None, alpha, 4096)
+    q32 = flat._prep_queries(queries[32])[0]
+    _, blk_b, t_cands, _ = T._acc_plan(q32, c, K, None)
+    out_s, out_i = T._lane_topk_acc_cuda(T._pad_queries(q32, blk_b, c.dtype), c, bias, None,
+                                         alpha, 2048, t_cands)
+    lanes = torch.where(out_s > NEG_INF, out_s, NEG_INF).transpose(1, 2) + 0.0
+    final = T._lane_top_t(out_s.transpose(1, 2), out_i.transpose(1, 2), t_cands)[0]
+    q8 = flat._prep_queries(queries[8])[0]
+    chunk = T._scores(q8.to(T.score_dtype(c.dtype)), c[:T.EXACT_CHUNK], bias[:T.EXACT_CHUNK],
+                      None, alpha)
+    g_blk, gsz = T._group_plan(qt, c, BLK_N, None)
+    group = T._lane_topk_group_cuda(T._pad_queries(qt, g_blk, c.dtype), c, bias, None, alpha,
+                                    BLK_N, gsz)[0]
+    cases = [("K2 candidates (copies)", cs, K), ("K1 lane lists B=32", lanes, t_cands),
+             ("K1 final B=32", final, K), ("exact chunk B=8", chunk, K),
+             ("K5 candidates B=256", group, K)]
+    cases += [(f"{kind} {list(shape)}", _select_input(dev, shape, kind, SEED + 70 + i, k), k)
+              for i, (shape, k, kind) in enumerate(SELECT_SYNTH)]
+    err = 0.0
+    for label, x, k in cases:
+        v, p = T.top_k_first(x, k)
+        ev, ep = T._select_exact(x, min(k, x.shape[-1]))
+        torch.cuda.synchronize()
+        if not torch.equal(p, ep) or not torch.equal(v.view(torch.int32), ev.view(torch.int32)):
+            bad = (p != ep).any(-1).nonzero().flatten()[:3].tolist()
+            raise AssertionError(f"phase13d select_topk differs from _select_exact on {label} "
+                                 f"k={k}: rows {bad}")
+        live = torch.isfinite(ev)
+        err = max(err, float((v[live] - ev[live]).abs().max()) if bool(live.any()) else 0.0)
+    errs["select_topk"] = err
+    print(f"phase13d select_topk bit for bit equal to _select_exact on {len(cases)} inputs: "
+          + "; ".join(f"{label} k={k}" for label, _, k in cases) + f" {tag}", flush=True)
+
+    cr = torch.randn(cs.shape, generator=torch.Generator(device=dev).manual_seed(SEED + 50),
+                     device=dev)
+    times = {}
+    for label, x in (("copies", cs), ("random", cr)):
+        fns = [("select_topk", lambda: T.top_k_first(x, K)),
+               ("torch.topk", lambda: torch.topk(x, K, dim=1)),
+               ("plain", lambda: T._select_exact(x, K))]
+        for name, fn in fns + fns[::-1]:
+            times.setdefault((label, name), []).append(_median_ms(fn))
+        times[label, "kernel"] = [_kernel_device_ms(fns[0][1], names=("select_topk",))]
+        times[label, "merge"] = [_median_ms(lambda: T._topk_pad(x, ci, K))]
+    times = {key: min(v) for key, v in times.items()}
+    bound = _bound(_nbytes(cs) + cs.shape[0] * K * (4 + 8), 0)
+    times["bound"] = bound
+    for label in ("copies", "random"):
+        print(f"phase13d the final top-{K} over K2's candidates {tuple(cs.shape)}, {label}: "
+              f"select_topk {times[label, 'select_topk']:.4f} ms (kernel alone "
+              f"{times[label, 'kernel']:.4f} device), torch.topk {times[label, 'torch.topk']:.4f}, "
+              f"_select_exact {times[label, 'plain']:.4f}, _topk_pad (selection + gather) "
+              f"{times[label, 'merge']:.4f}; bound {bound[0]:.4f} ms ({bound[1]}) {tag}",
+              flush=True)
+    return times
+
+
 def phase_ties(dev, ivf_idxs, T, IP, errs, tag):
     """Phase 13a-d: the flat bf16, int8 and f32 routes (K1, K2 through auto
     and fused, K5, K6) and the IVF raw and PQ probes (K3, K4) on copied
     rows, against their plain versions, exactly; launches with the counters
-    zeroed; the merge's time at [256, 65,536] beside torch.topk's."""
+    zeroed; select_topk against its plain version and its time (13d)."""
     from tostore_tpu_torch.vector import ivf as ivf_mod
 
     t_phase = time.perf_counter()
@@ -3192,7 +3400,9 @@ def phase_ties(dev, ivf_idxs, T, IP, errs, tag):
             (kernel, kernel_fn), (_, plain_fn) = _pairs(idx, qt, b, T)[:2]
             kernel += kname
             ks, ki = kernel_fn()
-            err = _tie_equal(f"phase13c {name} B={b} {kernel}", (ks, ki), plain_fn(), TOL[dtype])
+            with _plain_selection(T):
+                want = plain_fn()
+            err = _tie_equal(f"phase13c {name} B={b} {kernel}", (ks, ki), want, TOL[dtype])
             errs[kernel] = max(errs[kernel], err)
             # the index's answer is the kernel's: its slots (misses -1), in order
             _, slots, _ = got[gname, b, mode]
@@ -3212,7 +3422,9 @@ def phase_ties(dev, ivf_idxs, T, IP, errs, tag):
                                ("K6", lambda: T._pipe_topk_plain(qt, cv, ibias, k=K,
                                                                  alpha=ialpha))):
                 kernel = {"K5": "lane_topk_group", "K6": "lane_topk_group_pipe"}[key] + kname
-                err = _tie_equal(f"phase13c {name} {key}", got[name, key], plain(), TOL[dtype])
+                with _plain_selection(T):
+                    want = plain()
+                err = _tie_equal(f"phase13c {name} {key}", got[name, key], want, TOL[dtype])
                 errs[kernel] = max(errs[kernel], err)
                 checked += 1
     plain_fns = {"raw": ("bucket_probe_scores", IP._bucket_probe_scores_plain),
@@ -3222,7 +3434,8 @@ def phase_ties(dev, ivf_idxs, T, IP, errs, tag):
         kernel_fn = getattr(ivf_mod, attr)
         setattr(ivf_mod, attr, plain)
         try:
-            want = ivf_idxs[name].search_arrays(ivf_q[name], K, mode="probe")
+            with _plain_selection(T):
+                want = ivf_idxs[name].search_arrays(ivf_q[name], K, mode="probe")
         finally:
             setattr(ivf_mod, attr, kernel_fn)
         _sync()
@@ -3242,19 +3455,8 @@ def phase_ties(dev, ivf_idxs, T, IP, errs, tag):
         print(f"phase13c IVF {name} probe B=8 ({kernel}): hits and order equal to plain; "
               f"first row {slots[0].tolist()}", flush=True)
 
-    # --- 13d: the merge at [256, 65,536] (K2's candidates at 1M rows, B = 256)
-    qt, _, _ = flat._prep_queries(queries["bf16"][256])
-    qp = T._pad_queries(qt, 256, c.dtype)
-    cs, ci = T._lane_topk_emit_cuda(qp, c, bias, None, alpha, 4096)
-    times = {"merge": _median_ms(lambda: T._topk_pad(cs, ci, K)),
-             "torch.topk": _median_ms(lambda: torch.topk(cs, K, dim=1)),
-             "merge, one int64 key a candidate": _median_ms(lambda: T._select_exact(cs, K))}
-    cr = torch.randn(cs.shape, generator=torch.Generator(device=dev).manual_seed(SEED + 50),
-                     device=dev)
-    times["merge, random scores"] = _median_ms(lambda: T._topk_pad(cr, ci, K))
-    times["torch.topk, random scores"] = _median_ms(lambda: torch.topk(cr, K, dim=1))
-    print(f"phase13d the final top-{K} over K2's candidates {tuple(cs.shape)}: " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in times.items()) + f" {tag}", flush=True)
+    # --- 13d: select_topk against _select_exact, bit for bit, and its time
+    times = phase_select(dev, flat, queries["bf16"], T, errs, tag)
     print(f"phase13 {checked} routes equal to their plain versions in hits and order; "
           f"{time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
     del flat, side
@@ -3284,7 +3486,8 @@ def phase_ties_sharded(sharded, deleted, T, tag):
     kernel = T.fused_flat_topk
     T.fused_flat_topk = T._fused_flat_topk_plain
     try:
-        pdist, want = sharded.search_arrays(q, K)
+        with _plain_selection(T):
+            pdist, want = sharded.search_arrays(q, K)
     finally:
         T.fused_flat_topk = kernel
     if got.tolist() != want.tolist():
@@ -3308,7 +3511,8 @@ def _print_ptxas(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            stem = re.search(r"(lane_scan\w*?_kernel|lane_topk\w*?_kernel|ivf_\w+?_kernel)(\w*)",
+            stem = re.search(r"(lane_scan\w*?_kernel|lane_topk\w*?_kernel|ivf_\w+?_kernel|"
+                             r"select_topk_kernel)(\w*)",
                              m.group(1))
             name = (stem.group(1) + stem.group(2).split("EEEv")[0] if stem
                     else m.group(1))[:72]
@@ -3375,7 +3579,7 @@ def main() -> int:
     hybrid_launches = phase_hybrid(flat, f32_idx, deleted, ivf_idxs, ivf_deleted, ivf_queries,
                                    T, IP)
     tag = f"[{smi}]"
-    tie_launches, _ = phase_ties(dev, ivf_idxs, T, IP, errs, tag)
+    tie_launches, sel_times = phase_ties(dev, ivf_idxs, T, IP, errs, tag)
     del f32_idx, ivf_idxs  # the l2 index stays: phase 10a is held against it
     torch.cuda.empty_cache()
     engine_launches = phase_engine(T, IP, smi, times[1, "kernel"])
@@ -3401,6 +3605,8 @@ def main() -> int:
         "lane_topk_emit": sum(v["lane_topk_emit"] for v in flat_launches.values()),
         "ivf_bucket_probe": shard_ivf_launches["raw"]["ivf_bucket_probe"],
         "ivf_adc": shard_ivf_launches["pq192"]["ivf_adc"] + shard_engine_launches["ivf_adc"],
+        "select_topk": sum(v["select_topk"] for v in flat_launches.values())
+        + shard_engine_launches["select_topk"],
     }
     print(f"phase10 launches from the sharded path: {sharded_launches}", flush=True)
 
@@ -3480,6 +3686,27 @@ def main() -> int:
               ivf_launches["ivf_group_pairs"], ivf_times["raw", 64, "group_pairs"],
               ivf_times["raw", 64, "group_pairs plain"], ivf_bounds["raw", 64, "group_pairs"],
               kernel_ms=ivf_times["raw", 64, "prepass"]),
+        # the final selection of every route (no TPU kernel: jax.lax.top_k),
+        # over K2's [256, 65,536] candidates at 1M rows: the copied rows of
+        # phase 13 (ms) and random scores; launches by phase, each counted
+        # between its own zeroing and its read
+        {"name": "select_topk", "route": "cuda",
+         "source": "tostore_tpu_torch/csrc/select_topk.cu",
+         "replaces": "none: jax.lax.top_k, tostore_tpu/ops/topk.py:659 and the other sites",
+         "launches": launches["select_topk"], "max_abs_err": errs["select_topk"],
+         "ms": sel_times["copies", "select_topk"], "plain_ms": sel_times["copies", "plain"],
+         "bound_ms": sel_times["bound"][0], "bound_by": sel_times["bound"][1],
+         "library_ms": sel_times["copies", "torch.topk"],
+         "kernel_ms": sel_times["copies", "kernel"],
+         "random_ms": sel_times["random", "select_topk"],
+         "random_plain_ms": sel_times["random", "plain"],
+         "random_library_ms": sel_times["random", "torch.topk"],
+         "random_kernel_ms": sel_times["random", "kernel"],
+         "launches_by_phase": {
+             "2": launches["select_topk"], "6": ivf_launches["select_topk"],
+             "8": hybrid_launches["select_topk"], "9": engine_launches["select_topk"],
+             "10": sharded_launches["select_topk"], "12b": entry_launches["select_topk"],
+             "13b": tie_launches["select_topk"]}},
     ]}
     print("build s (train + buckets): " + json.dumps(build_s) + "; sharded over 4 cells of "
           "one card: " + json.dumps(shard_build_s), flush=True)

@@ -3,7 +3,9 @@
 (`ivf_bucket_probe`), K4 (`ivf_adc`), K5 (`lane_topk_group`; f32
 `lane_topk_group_f32`) and K6 (`lane_topk_group_pipe`; f32
 `lane_topk_group_pipe_f32`) against their plain PyTorch versions on the
-same CUDA tensors, the flat and IVF indexes on the card (filtered too)
+same CUDA tensors, the final selection `select_topk` against
+`_select_exact` bit for bit on every route's shape (and the flat scans
+with no host sync), the flat and IVF indexes on the card (filtered too)
 against the same indexes on the CPU, and the sharded indexes of parallel/
 on a mesh of 4 cells of one card against the single-device index.
 
@@ -28,7 +30,8 @@ import torch
 import tostore_tpu_torch.ops.ivfprobe as tivf
 import tostore_tpu_torch.ops.topk as ttopk
 from tostore_tpu_torch import FlatVectorIndex, IVFVectorIndex
-from torch_parity import TOL, assert_topk_equal, assert_topk_match, tie_inputs, torch_scan_inputs
+from torch_parity import (SELECT_KINDS, TOL, assert_topk_equal, assert_topk_match,
+                          select_scores, tie_inputs, torch_scan_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -907,3 +910,146 @@ def test_dryrun_multichip_defaults_to_the_card(cuda, n):
     g.dryrun_multichip(n)
     assert ttopk.LAUNCHES["lane_topk_acc_f32"] == flat["lane_topk_acc_f32"] + n
     assert tivf.LAUNCHES["ivf_adc"] == ivf["ivf_adc"] + n
+
+
+# --------------------------------------------------------------------------
+# select_topk (csrc/select_topk.cu): the final selection of every route
+# --------------------------------------------------------------------------
+
+# (shape, k) of each route's selection at the smoke's sizes (1M rows, B up
+# to 256): K2's merge; K1's per-lane merge at B = 32 (a lane shorter than
+# T: k = N) and its final; an exact-scan chunk; K5 / K6's merge; the IVF
+# probe selection, raw final top-k and re-rank pool at k = 10 and 100;
+# k-means assignment; the sharded merge; a k above SELECT_CAP.
+SELECT_ROUTES = {
+    "k2": ((256, 65536), 10),
+    "k1_lanes": ((32, 128, 1024), 16),
+    "k1_lanes_short": ((8, 128, 8), 16),
+    "k1_final": ((32, 2048), 10),
+    "exact_chunk": ((8, 65536), 10),
+    "k5": ((128, 4096), 10),
+    "ivf_probe": ((64, 1232), 16),
+    "ivf_final": ((64, 31744), 10),
+    "ivf_pool": ((64, 31744), 512),
+    "ivf_pool_k100": ((8, 31744), 5100),
+    "ivf_assign": ((65536, 1024), 3),
+    "sharded": ((256, 40), 10),
+    "above_cap": ((2, 20000), 9000),
+}
+
+
+def _same_selection(v, p, s, k):
+    """values and positions of the kernel equal to `_select_exact`'s, bit
+    for bit"""
+    ev, ep = ttopk._select_exact(s, min(k, s.shape[-1]))
+    torch.cuda.synchronize()
+    assert torch.equal(p, ep)
+    assert torch.equal(v.view(torch.int32), ev.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+@pytest.mark.parametrize("route", list(SELECT_ROUTES))
+def test_select_topk_matches_plain_bit_for_bit(cuda, route, kind):
+    shape, k = SELECT_ROUTES[route]
+    s = torch.from_numpy(select_scores(shape, kind, 7 * len(route) + len(kind), k)).to(cuda)
+    before = _launches()["select_topk"]
+    v, p = ttopk.top_k_first(s, k)
+    assert ttopk.LAUNCHES["select_topk"] == before + 1
+    _same_selection(v, p, s, k)
+
+
+def test_select_topk_layouts_and_empty(cuda):
+    # a transposed (non-contiguous) input as K1's per-lane merge makes it, a
+    # bf16 input (values in bf16), misaligned rows (N % 4 != 0), k = 0, N = 0
+    x = torch.from_numpy(select_scores((4, 1024, 128), "copies", 3, 16)).to(cuda)
+    _same_selection(*ttopk.top_k_first(x.transpose(1, 2), 16), x.transpose(1, 2), 16)
+    xb = torch.from_numpy(select_scores((8, 5000), "few", 4)).to(cuda).bfloat16()
+    v, p = ttopk.top_k_first(xb, 50)
+    assert v.dtype == torch.bfloat16
+    _same_selection(v.float(), p, xb.float(), 50)
+    xo = torch.from_numpy(select_scores((16, 70001), "random", 5)).to(cuda)
+    _same_selection(*ttopk.top_k_first(xo[:, 1:], 10), xo[:, 1:], 10)
+    before = _launches()["select_topk"]
+    for s, k in ((xo, 0), (xo[:, :0], 5), (xo[:0], 5)):
+        v, p = ttopk.top_k_first(s, k)
+        assert v.numel() == 0 and p.dtype == torch.int64
+    assert ttopk.LAUNCHES["select_topk"] == before
+
+
+def test_select_topk_raises_on_bad_cuda_input(cuda):
+    s = torch.zeros(64, 4, device=cuda)
+    with pytest.raises(ValueError):  # not contiguous
+        ttopk._select_topk_cuda(s.t(), 3)
+    with pytest.raises(ValueError):  # k above n
+        ttopk._select_topk_cuda(s, 5)
+    with pytest.raises(TypeError):
+        ttopk._select_topk_cuda(s.double(), 3)
+    with pytest.raises(TypeError):  # no integer scores on the card
+        ttopk.top_k_first(s.long(), 3)
+
+
+def test_select_topk_launches_on_every_route(cuda, monkeypatch):
+    """Every selection of a route on the card is select_topk: the flat scans
+    (exact, K1 twice: per-lane merge then final, K2, K5, K6, the lane
+    scan), IVF raw and PQ, the sharded merge and the engine."""
+    import tostore_tpu_torch as P
+    from tostore_tpu_torch.parallel import ShardedFlatIndex
+
+    monkeypatch.setattr(ttopk, "MIN_FUSED_N", 0)
+    tx, alpha, _ = torch_scan_inputs(3, 40, 8192, 256, "bfloat16", "l2", device=cuda)
+    q, c, bias = tx[:3]
+
+    def launched(fn):
+        before = ttopk.LAUNCHES["select_topk"]
+        fn()
+        torch.cuda.synchronize()
+        return ttopk.LAUNCHES["select_topk"] - before
+
+    assert launched(lambda: ttopk.flat_topk_xla(q, c, bias, alpha, 10)) == 1
+    assert launched(lambda: ttopk.fused_flat_topk(q[:8], c, bias, k=10, alpha=alpha)) == 2
+    assert launched(lambda: ttopk.fused_flat_topk(q, c, bias, k=10, alpha=alpha)) == 1
+    assert launched(lambda: ttopk._fused_group_emit(q, c, bias, k=10, alpha=alpha,
+                                                    blk_n=2048)) == 1
+    assert launched(lambda: ttopk.pipe_topk(q, c, bias, k=10, alpha=alpha)) == 1
+    assert launched(lambda: ttopk.flat_topk_lane(q, c, bias, k=10, alpha=alpha)) == 1
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2000, 64)).astype(np.float32)
+    for pq in (0, 8):
+        idx = IVFVectorIndex(64, "l2", "bfloat16", num_clusters=8, nprobe=4,
+                             min_train_size=100, pq_subspaces=pq, device=cuda)
+        idx.upsert(list(range(2000)), x)
+        # the probe selection and the final top-k; PQ adds the re-rank pool
+        assert launched(lambda: idx.search_arrays(x[:4], 10, mode="probe")) >= (3 if pq else 2)
+    sh = ShardedFlatIndex(64, _card_mesh(cuda, 2), "l2", "bfloat16")
+    sh.upsert(list(range(2000)), x)
+    # at least each cell's scan, then one merge a dp row
+    assert launched(lambda: sh.search_arrays(x[:4], 10)) >= 4 + 2
+    db = P.ToStoreTPU.memory(schemas=[_engine_schema(P, "docs", "bfloat16", index_type="flat")],
+                             device=str(cuda))
+    try:
+        db.batch_insert("docs", [{"price": 1.0, "emb": np.resize(x[i], 256)} for i in range(300)])
+        assert launched(lambda: db.vector_search("docs", "emb", np.resize(x[7], 256),
+                                                 top_k=3)) >= 1
+    finally:
+        db.close()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("b", [1, 8, 32, 256])
+def test_flat_scans_need_no_host_sync(cuda, dtype, b):
+    """K1 (B <= 32) and K2 with their selections, and K5 with its merge,
+    under torch.cuda.set_sync_debug_mode("error"): no host sync."""
+    tx, alpha, _ = torch_scan_inputs(b + 2, b, 16384, 256, dtype, "l2", device=cuda)
+    calls = [lambda: ttopk.fused_flat_topk(*tx[:3], k=10, alpha=alpha, row_scale=tx[3]),
+             lambda: ttopk._fused_group_emit(*tx[:3], k=10, alpha=alpha, blk_n=2048,
+                                             row_scale=tx[3])]
+    want = [call() for call in calls]  # the first call builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [call() for call in calls]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for (gs, gi), (ws, wi) in zip(got, want):
+        assert torch.equal(gi, wi) and torch.equal(gs, ws)

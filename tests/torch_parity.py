@@ -159,3 +159,35 @@ def scan_inputs(seed, b, n, d, dtype, metric, inputs=None):
     jx = (jnp.asarray(q), jnp.asarray(c, jdt), jnp.asarray(bias),
           None if scale is None else jnp.asarray(scale))
     return jx, tx, alpha
+
+
+# The edge cases of a selection (`ops.topk.top_k_first`): see select_scores.
+SELECT_KINDS = ("random", "few", "copies", "misses", "equal")
+_FEW = np.array([2.0, 1.0, 0.5, 0.0, -0.0, -1.0, np.inf, -np.inf, np.nan, -np.nan], np.float32)
+
+
+def select_scores(shape, kind, seed, k=10):
+    """f32 scores [..., N] for a selection of k: "random" normal; "few"
+    ten values, +-0.0, +-inf and +-NaN among them, so most of a row ties;
+    "copies" normal with each row's k-th best score copied to 3k random
+    positions, so equal scores straddle the k-th place; "misses" NEG_INF
+    but k // 2 + 1 live scores a row (a search that passes fewer than k
+    rows); "equal" one score everywhere."""
+    rng = np.random.default_rng(seed)
+    n = shape[-1]
+    if kind == "few":
+        return _FEW[rng.integers(0, len(_FEW), shape)]
+    if kind == "equal":
+        return np.full(shape, 0.75, np.float32)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    flat = x.reshape(-1, n)
+    rows = np.arange(flat.shape[0])[:, None]
+    if kind == "copies":
+        kth = -np.partition(-flat, min(k, n) - 1, axis=1)[:, min(k, n) - 1]
+        flat[rows, rng.integers(0, n, (flat.shape[0], 3 * k))] = kth[:, None]
+    elif kind == "misses":
+        live = rng.integers(0, n, (flat.shape[0], k // 2 + 1))
+        keep = flat[rows, live]
+        flat[:] = NEG_INF
+        flat[rows, live] = keep
+    return x

@@ -56,6 +56,8 @@ _SIGNATURES = {
     "ivf_adc": [_P, _L, _L, _P, _I, _L, _L, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                 _P, _P],
     "ivf_group_pairs": [_P, _I, _L, _L, _I, _I, _I, _P, _P, _P],
+    # select_topk.cu (the final selection of every search route)
+    "select_topk": [_P, _L, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -26,7 +26,10 @@ IEEE totalOrder, ties to the lower position in the candidate layout the
 reference's kernel or scan emits (the row; t*128 + lane of K1's lists;
 block, then tops before seconds, of K2 / K5 / K6; chunk, then tops before
 seconds, of the lane scan), so each route returns the reference's hits in
-the reference's order, exactly equal scores included.
+the reference's order, exactly equal scores included. On a CUDA tensor it
+launches the hand-written selection kernel (csrc/select_topk.cu,
+`select_topk`), with no host sync; on a CPU tensor it runs its plain
+version (`_top_k_first_plain`).
 
 Outside the dispatch, as in the JAX package: `_fused_group_emit` folds
 the per-block top-2 into a per-(group of gsz blocks, lane) top-2 (kernel
@@ -102,7 +105,7 @@ _CTAS_PER_SM_F32 = 2
 # it; a run reads them to show which kernels its path went through.
 LAUNCHES = {"lane_topk_acc": 0, "lane_topk_emit": 0, "lane_topk_acc_f32": 0,
             "lane_topk_emit_f32": 0, "lane_topk_group": 0, "lane_topk_group_pipe": 0,
-            "lane_topk_group_f32": 0, "lane_topk_group_pipe_f32": 0}
+            "lane_topk_group_f32": 0, "lane_topk_group_pipe_f32": 0, "select_topk": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -111,9 +114,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # Selection in the reference's order
 # --------------------------------------------------------------------------
 
-# Up to this many scores a selection ranks one int64 key a candidate (no
-# host sync); above, torch.topk selects and only rows with ties reselect.
+# The plain selection (CPU tensors): up to this many scores it ranks one
+# int64 key a candidate; above, torch.topk selects and only rows with ties
+# reselect.
 EXACT_SELECT_MAX = 1 << 20
+# select_topk (csrc/select_topk.cu): the most candidates one CTA sorts in
+# shared memory (64-bit keys, 64 KB); a larger k takes chunks of this many,
+# each a full selection over the row.
+SELECT_CAP = 8192
+# rows longer than this take 512 threads a CTA, shorter ones 128
+_SELECT_WIDE_N = 4096
 _LOW32 = 0xFFFFFFFF
 # A search's misses score at or below this (ops/distance.py
 # `finalize_results`): their order among themselves is never read.
@@ -165,13 +175,25 @@ def top_k_first(s: torch.Tensor, k: int, floor: float | None = None):
     """Top-k along the last axis with `jax.lax.top_k`'s contract: scores
     descending in IEEE totalOrder (0.0 before -0.0, NaN first), and among
     equal scores the lower position first, both for membership at the k-th
-    place and for order. `torch.topk` fixes no order among equal values:
-    up to EXACT_SELECT_MAX scores the selection ranks unique (score,
-    position) keys, one int64 each; above, torch.topk's answer stands
-    where its k + 1 best are strictly decreasing, and only the other rows
-    select again over the keys (one host sync). A floor (MISS_FLOOR for a
-    search) leaves the order of the scores at or below it to torch.topk.
-    Returns (values, positions), min(k, N) wide."""
+    place and for order. Returns (values, positions int64), min(k, N) wide.
+
+    On a CUDA tensor this launches `select_topk` (`_select_topk_cuda`) for
+    every shape and k, with no host sync; it is exact for every score, so
+    `floor` is not read. On a CPU tensor it runs the plain version,
+    `_top_k_first_plain`."""
+    if s.is_cuda:
+        return _top_k_first_cuda(s, k)
+    return _top_k_first_plain(s, k, floor)
+
+
+def _top_k_first_plain(s: torch.Tensor, k: int, floor: float | None = None):
+    """Plain PyTorch version of `top_k_first`. `torch.topk` fixes no order
+    among equal values: up to EXACT_SELECT_MAX scores the selection ranks
+    unique (score, position) keys, one int64 each; above, torch.topk's
+    answer stands where its k + 1 best are strictly decreasing, and only
+    the other rows select again over the keys (one host sync). A floor
+    (MISS_FLOOR for a search) leaves the order of the scores at or below it
+    to torch.topk."""
     n = s.shape[-1]
     kk = min(k, n)
     if s.numel() <= EXACT_SELECT_MAX or kk >= n or kk == 0:
@@ -184,6 +206,71 @@ def top_k_first(s: torch.Tensor, k: int, floor: float | None = None):
         v = v.reshape(-1, kk).index_copy(0, rows, ev).reshape(*lead, kk)
         p = p.reshape(-1, kk).index_copy(0, rows, ep).reshape(*lead, kk)
     return v, p
+
+
+def _top_k_first_cuda(s: torch.Tensor, k: int):
+    """`top_k_first` on the card: the leading axes flattened to rows, a
+    float input other than f32 widened to f32 for the keys (as
+    `_order_key` does) and its values gathered from the input; k = 0, N = 0
+    or no rows give empty tensors without a launch."""
+    lead, n = s.shape[:-1], s.shape[-1]
+    kk = min(k, n)
+    if kk <= 0 or s.numel() == 0:
+        return (torch.empty((*lead, max(kk, 0)), dtype=s.dtype, device=s.device),
+                torch.empty((*lead, max(kk, 0)), dtype=torch.int64, device=s.device))
+    if not s.is_floating_point():
+        raise TypeError(f"top_k_first takes float scores on the card, got {s.dtype}")
+    v, p = _select_topk_cuda(s.float().contiguous().reshape(-1, n), kk)
+    v, p = v.reshape(*lead, kk), p.reshape(*lead, kk)
+    if s.dtype != torch.float32:
+        v = torch.gather(s, -1, p)
+    return v, p
+
+
+def _select_plan(n: int, k: int):
+    """(threads a CTA, buffer keys) of select_topk for rows of n scores: the
+    buffer holds the k winners (SELECT_CAP at most, then chunks) and at
+    least 4 keys a thread, so that a histogram pass ends early where the
+    k-th's bin is small."""
+    threads = 512 if n > _SELECT_WIDE_N else 128
+    want = 1 << (min(k, SELECT_CAP) - 1).bit_length()
+    return threads, min(SELECT_CAP, max(want, 4 * threads))
+
+
+def _check_select_inputs(s: torch.Tensor, k: int):
+    """Raise on what select_topk does not take: f32 [R, N] contiguous rows,
+    1 <= k <= N, N < 2^31 - 1 and R < 2^31 (int32 positions and grid)."""
+    if s.dtype != torch.float32:
+        raise TypeError(f"select_topk takes float32 scores, got {s.dtype}")
+    if s.dim() != 2:
+        raise ValueError(f"select_topk takes [rows, n] scores, got {tuple(s.shape)}")
+    if not s.is_contiguous():
+        raise ValueError("select_topk takes contiguous rows")
+    rows, n = s.shape
+    if not 1 <= k <= n:
+        raise ValueError(f"select_topk takes 1 <= k <= n = {n}, got k = {k}")
+    if n >= 2**31 - 1 or rows >= 2**31:
+        raise ValueError(f"select_topk takes rows < 2^31 of n < 2^31 - 1, got {tuple(s.shape)}")
+
+
+def _select_topk_cuda(s: torch.Tensor, k: int):
+    """select_topk on the card: s [R, N] f32 -> (values [R, k] f32, bit for
+    bit the scores, positions [R, k] int64) in `top_k_first`'s order."""
+    if not s.is_cuda:
+        raise ValueError(f"select_topk takes a CUDA tensor, got one on {s.device}")
+    _check_select_inputs(s, k)
+    rows, n = s.shape
+    threads, cap = _select_plan(n, k)
+    out_v = torch.empty((rows, k), dtype=torch.float32, device=s.device)
+    out_p = torch.empty((rows, k), dtype=torch.int64, device=s.device)
+    lib = _kernels.library()
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream(s.device).cuda_stream
+        err = lib.select_topk(s.data_ptr(), rows, n, k, threads, cap, out_v.data_ptr(),
+                              out_p.data_ptr(), stream)
+    _kernels.check("select_topk", err)
+    _kernels.count(LAUNCHES, "select_topk")
+    return out_v, out_p
 
 
 def _topk_pad(flat_s, flat_i, k: int):
@@ -286,12 +373,16 @@ def _lane_top_t(vs, vi, t_cands: int):
     list, and equal scores, -0.0 and 0.0 among them, keep insertion order.
     Lanes with fewer than T candidates pad with NEG_INF / index 0."""
     b, _, width = vs.shape
+    # the insert's order as a selection key, written row-contiguous in one
+    # pass: + 0.0 turns -0.0 into 0.0, NaN and -inf become NEG_INF
+    key = torch.empty(vs.shape, dtype=torch.float32, device=vs.device)
+    torch.add(vs, 0.0, out=key)
+    torch.nan_to_num_(key, nan=NEG_INF, posinf=float("inf"), neginf=NEG_INF)
+    _, pos = top_k_first(key, t_cands)
+    vs, vi = torch.gather(vs, 2, pos), torch.gather(vi, 2, pos)
     live = vs > NEG_INF
     vs = torch.where(live, vs, NEG_INF)
-    vi = torch.where(live, vi, torch.zeros_like(vi))
-    # + 0.0 turns -0.0 into 0.0: the insert's order treats them as equal
-    _, pos = top_k_first(vs + 0.0, t_cands)
-    vs, vi = torch.gather(vs, 2, pos), torch.gather(vi, 2, pos)
+    vi = torch.where(live, vi, 0)
     if width < t_cands:
         pad = t_cands - width
         vs = torch.nn.functional.pad(vs, (0, pad), value=NEG_INF)
@@ -376,7 +467,7 @@ def _list_width(per: int, t_cands: int) -> int:
     return 2 * per if 2 * per <= t_cands else t_cands
 
 
-def _merge_split_lists(out_s, out_i, t_cands: int, k: int):
+def _merge_split_lists(out_s, out_i, t_cands: int, k: int, card: bool | None = None):
     """K1's per-split lists [B, splits * W, 128] -> the reference's top-k
     (scores, rows) [B, k]: the top-k of its per-lane top-T lists by
     (score, t * 128 + lane). A split holds its blocks' per-lane candidates
@@ -386,14 +477,19 @@ def _merge_split_lists(out_s, out_i, t_cands: int, k: int):
     insertion order among equal scores, and its top-T of them by (score,
     position) is the reference's list (`_lane_top_t`).
 
-    Where the k + 1 best of all lists are strictly decreasing (misses
+    On the card (`card` None: where the lists are CUDA tensors; True takes
+    that branch on any tensors, with the plain selection on the CPU) it is
+    always that per-lane merge: two selections, no host sync. On the CPU,
+    where the k + 1 best of all lists are strictly decreasing (misses
     aside) and k <= T, they are the answer as they stand (`_select_fast`):
     no lane holds more than k of them, so none is cut at T, and with no
     equal scores the order is the score's. The other rows (one host sync
     finds them) take the per-lane merge."""
+    if card is None:
+        card = out_s.is_cuda
     b = out_s.shape[0]
     flat_s, flat_i = out_s.reshape(b, -1), out_i.reshape(b, -1)
-    if k > t_cands or k >= flat_s.shape[1]:
+    if card or k > t_cands or k >= flat_s.shape[1]:
         return _lane_merge(out_s, out_i, t_cands, k)
     top_s, pos, unsure = _select_fast(flat_s, k, MISS_FLOOR)
     top_i = torch.gather(flat_i, 1, pos).long()
