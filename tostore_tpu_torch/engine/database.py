@@ -60,6 +60,7 @@ from ..utils import codec
 from ..utils.bf16 import BF16Array
 from ..utils.logging import Logger
 from ..utils.rwlock import ReadGuard, RWLock, WriteGuard, rw
+from ..utils.spans import span
 from .table import INGEST_TS_FIELD, Table, ValidationError
 from .wal import (
     SegmentedWalWriter,
@@ -953,7 +954,8 @@ class Database:
     def _timed(self, op: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(op):
+                yield
         finally:
             with self._metrics_lock:
                 cell = self._timings.setdefault(op, [0, 0.0])
@@ -973,8 +975,10 @@ class Database:
         (reference §5 tracing): a Chrome trace, `log_dir/trace_<ms>.json`,
         viewable in Perfetto or chrome://tracing. Wraps
         torch.profiler.profile — host ops, and on a CUDA device the
-        kernels and copies, show up per-op. `host_profiler=True` adds
-        Python stacks to the host events."""
+        kernels and copies, show up per-op, inside the engine's own spans
+        (utils/spans.py): `tostore.<op>` for each timed operation and
+        `tostore.vector_search.<stage>` for the stages of a search.
+        `host_profiler=True` adds Python stacks to the host events."""
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
@@ -2583,7 +2587,7 @@ class Database:
             # (workload_scheduler.dart:48-53), done RCU-style: the shared
             # index lock, acquired before the engine lock drops, guarantees
             # corpus layout and slot mask stay mutually consistent.
-            with self._lock:
+            with span("vector_search.capture"), self._lock:
                 t = self._table(table)
                 self._note_read(self._tkey(t))  # predicate read
                 idx = t.vector_index_for(field)
@@ -2618,6 +2622,15 @@ class Database:
                 )
             finally:
                 lock.release_read()
+            with span("vector_search.post"):
+                return self._vector_search_post(table, hits, condition, include_records,
+                                                ov_keys, pending_del, pending_filt)
+
+    def _vector_search_post(self, table, hits, condition, include_records, ov_keys,
+                            pending_del, pending_filt):
+        """The stage after the index search: the transaction overlay and
+        the deferred flush's post-filters, `include_records`, and the
+        weight updates of the first hits."""
         if ov_keys:
             # own-transaction overlay: a row deleted or rewritten in the
             # open txn must not surface from the committed index (buffered
@@ -2713,22 +2726,23 @@ class Database:
             return None
         from ..vector import filters
 
-        fc = idx.corpus.filter_columns
-        device_ok = filters.compilable(
-            condition, set(t.filter_fields) & fc.names()
-        )
-        if device_ok and idx.corpus.capacity:
-            for name in condition.referenced_fields():
-                fc.ensure(name, idx.corpus.capacity)
-            return filters.device_mask(condition, fc, idx.corpus.capacity)
-        # host fallback: LIKE/text predicates, unindexed fields
-        mask = condition.mask(lambda f: t.store.column_view(f), t.store.high)
-        rows = t.store.rows_for_mask(mask)
-        allowed = [t.store.pk_col.get(r) for r in rows]
-        # the scan wants the mask on the corpus's device
-        return torch.from_numpy(t.slot_mask_from_pks(field, allowed)).to(
-            idx.corpus.device
-        )
+        with span("vector_search.mask"):
+            fc = idx.corpus.filter_columns
+            device_ok = filters.compilable(
+                condition, set(t.filter_fields) & fc.names()
+            )
+            if device_ok and idx.corpus.capacity:
+                for name in condition.referenced_fields():
+                    fc.ensure(name, idx.corpus.capacity)
+                return filters.device_mask(condition, fc, idx.corpus.capacity)
+            # host fallback: LIKE/text predicates, unindexed fields
+            mask = condition.mask(lambda f: t.store.column_view(f), t.store.high)
+            rows = t.store.rows_for_mask(mask)
+            allowed = [t.store.pk_col.get(r) for r in rows]
+            # the scan wants the mask on the corpus's device
+            return torch.from_numpy(t.slot_mask_from_pks(field, allowed)).to(
+                idx.corpus.device
+            )
 
     # ------------------------------------------------------------- transactions
 

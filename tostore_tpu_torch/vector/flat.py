@@ -18,6 +18,7 @@ import torch
 from ..models.results import VectorSearchResult
 from ..ops import distance as D
 from ..ops import topk as T
+from ..utils.spans import span
 from .corpus import DeviceCorpus
 
 _METRIC_ALIASES = {
@@ -26,6 +27,28 @@ _METRIC_ALIASES = {
     "innerProduct": "dot",
     "dot": "dot",
 }
+
+
+def hits_of(metric: str, dist: np.ndarray, slots: np.ndarray, pks: np.ndarray,
+            threshold: float | None) -> list[VectorSearchResult]:
+    """One query's results with the reference's semantics: no-hit slots
+    and non-finite distances dropped, the distance threshold applied, the
+    score mapped from the distance."""
+    score = D.distances_to_scores(
+        metric, torch.from_numpy(np.where(np.isfinite(dist), dist, 0))
+    ).numpy()
+    out = []
+    for j in range(len(slots)):
+        if slots[j] < 0 or not np.isfinite(dist[j]):
+            continue
+        if threshold is not None and dist[j] > threshold:
+            continue
+        out.append(
+            VectorSearchResult(
+                primary_key=pks[j], distance=float(dist[j]), score=float(score[j])
+            )
+        )
+    return out
 
 
 class FlatVectorIndex:
@@ -109,50 +132,45 @@ class FlatVectorIndex:
         bias = D.make_bias(self.metric, norms, valid)
         return bias, alpha, c.scales
 
+    def _scan(self, q: np.ndarray, k: int, slot_mask: torch.Tensor | None,
+              mode: str) -> tuple[np.ndarray, np.ndarray]:
+        """(distances [B, k] f32, slots [B, k] i64 with -1 for no-hit):
+        the queries' preparation, the scan and selection enqueued on the
+        device, and the wait for their copy down, each a span."""
+        c = self.corpus
+        if c.capacity == 0 or len(c) == 0:
+            b = 1 if np.asarray(q).ndim == 1 else np.asarray(q).shape[0]
+            return np.full((b, k), np.inf, np.float32), np.full((b, k), -1, np.int64)
+        with span("vector_search.prep"):
+            qt, qsq, _ = self._prep_queries(q)
+        with span("vector_search.dispatch"):
+            with span("vector_search.bias"):
+                bias, alpha, row_scale = self._bias_alpha(slot_mask)
+            scores, idx = T.flat_search(
+                qt, c.vectors, bias, k=k, alpha=alpha, mode=mode, row_scale=row_scale
+            )
+            d_dev, s_dev = D.finalize_results(self.metric, scores, idx, qsq)
+        with span("vector_search.wait"):
+            return (d_dev.cpu().numpy().astype(np.float32),
+                    s_dev.cpu().numpy().astype(np.int64))
+
     def search_arrays(self, q: np.ndarray, k: int,
                       slot_mask: torch.Tensor | None = None,
                       mode: str = "auto") -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Batch search. Returns (distances [B,k] f32, slots [B,k] i64 with
         -1 for no-hit, pks [B,k] object)."""
-        c = self.corpus
-        if c.capacity == 0 or len(c) == 0:
-            b = 1 if np.asarray(q).ndim == 1 else np.asarray(q).shape[0]
-            dist = np.full((b, k), np.inf, np.float32)
-            slots = np.full((b, k), -1, np.int64)
-            return dist, slots, np.full((b, k), None, dtype=object)
-
-        qt, qsq, _ = self._prep_queries(q)
-        bias, alpha, row_scale = self._bias_alpha(slot_mask)
-        scores, idx = T.flat_search(
-            qt, c.vectors, bias, k=k, alpha=alpha, mode=mode, row_scale=row_scale
-        )
-        d_dev, s_dev = D.finalize_results(self.metric, scores, idx, qsq)
-        dist_np = d_dev.cpu().numpy().astype(np.float32)
-        idx_np = s_dev.cpu().numpy().astype(np.int64)
-        pks = c.pks_for_slots(idx_np)
-        return dist_np, idx_np, pks
+        dist, slots = self._scan(q, k, slot_mask, mode)
+        with span("vector_search.results"):
+            return dist, slots, self.corpus.pks_for_slots(slots)
 
     def search(self, q: np.ndarray, top_k: int = 10, threshold: float | None = None,
                slot_mask: torch.Tensor | None = None,
                mode: str = "auto") -> list[VectorSearchResult]:
         """Single-query search with reference result semantics."""
-        dist, slots, pks = self.search_arrays(q, top_k, slot_mask, mode)
-        dist, slots, pks = dist[0], slots[0], pks[0]
-        score = D.distances_to_scores(
-            self.metric, torch.from_numpy(np.where(np.isfinite(dist), dist, 0))
-        ).numpy()
-        out = []
-        for j in range(len(slots)):
-            if slots[j] < 0 or not np.isfinite(dist[j]):
-                continue
-            if threshold is not None and dist[j] > threshold:
-                continue
-            out.append(
-                VectorSearchResult(
-                    primary_key=pks[j], distance=float(dist[j]), score=float(score[j])
-                )
-            )
-        return out
+        dist, slots = self._scan(q, top_k, slot_mask, mode)
+        with span("vector_search.results"):
+            return hits_of(self.metric, dist[0], slots[0],
+                           self.corpus.pks_for_slots(slots[0]), threshold)
 
     # --- persistence ---------------------------------------------------------
 

@@ -35,8 +35,9 @@ from ..ops import distance as D
 from ..ops.ivfprobe import adc_bucket_scores, adc_kernel_supported, bucket_probe_scores
 from ..ops.runtime import NEG_INF, f32_dot, round_up, score_dtype
 from ..ops.topk import MISS_FLOOR, top_k_first
+from ..utils.spans import span
 from .corpus import DeviceCorpus
-from .flat import _METRIC_ALIASES, FlatVectorIndex
+from .flat import _METRIC_ALIASES, FlatVectorIndex, hits_of
 from .pq import (
     PQCodebook,
     _kmeans_all_subspaces,
@@ -1076,99 +1077,109 @@ class IVFVectorIndex:
 
     # --- search ---------------------------------------------------------------
 
+    def _flat_view(self, q, nprobe: int | None, mode: str):
+        """The exact flat scan of this index's corpus, as a FlatVectorIndex
+        view, where it answers the search (an empty corpus, an untrained
+        index, mode 'exact', or a batch the flat scan serves faster than
+        the probe), with the mode it runs in; else None."""
+        c = self.corpus
+        qn = np.asarray(q)
+        b_est = 1 if qn.ndim == 1 else qn.shape[0]
+        if len(c) and not self.trained and mode != "exact" and not self.defer_retrain:
+            # library-direct index: lazy first train (engine-owned indexes
+            # stay on the flat scan until background maintenance trains)
+            self.train()
+        np_est = min(int(nprobe or self.nprobe),
+                     self.centroids_exp.shape[0] if self.trained else 1)
+        if (len(c) == 0 or not self.trained or mode == "exact"
+                or (mode != "probe" and self._flat_beats_probe(b_est, np_est))):
+            tmp = FlatVectorIndex.__new__(FlatVectorIndex)
+            tmp.metric = self.metric
+            tmp.corpus = c
+            return tmp, (mode if mode in ("exact", "fast") else "auto")
+        return None
+
+    def _probe(self, q, k: int, slot_mask: torch.Tensor | None, nprobe: int | None):
+        """(distances [B, k], slots [B, k]) from the probe: the queries'
+        preparation, the probe scan and selection enqueued on the device,
+        and the wait for their copy down, each a span."""
+        c = self.corpus
+        with span("vector_search.prep"):
+            qx = np.asarray(q, np.float32)
+            if qx.ndim == 1:
+                qx = qx[None, :]
+            qsq = torch.from_numpy(np.sum(qx * qx, axis=1)).to(self.device)
+            if self.metric == "cosine":
+                qx = qx / np.maximum(np.linalg.norm(qx, axis=1, keepdims=True), 1e-12)
+            if c.d_pad != qx.shape[1]:
+                qx = np.pad(qx, ((0, 0), (0, c.d_pad - qx.shape[1])))
+            qt = torch.from_numpy(np.ascontiguousarray(qx)).to(self.device)
+
+        with span("vector_search.dispatch"):
+            valid = c.valid if slot_mask is None else c.valid & slot_mask
+            alpha = D.metric_alpha(self.metric)
+            sqn = c.sq_norms if self.metric == "l2" else None
+            # nprobe counts SLICES: the scan budget is ~nprobe*cap rows
+            np_probe = min(int(nprobe or self.nprobe), self.centroids_exp.shape[0])
+            # PQ re-rank pool: the JAX package's recall-derived floor of 512
+            pq_rr = self.pq_rerank or max(self.rerank_factor * k, 51 * k, 512)
+            cents = (self.centroids, self._slice_cluster_dev)
+            if self.pq is not None and (self.bucket_codes is not None or self.codes is not None):
+                q_raw = qt[:, : c.dims]
+                adc = dict(nprobe=np_probe, k=k, rerank=pq_rr,
+                           adc_metric="dot" if self.metric == "dot" else "l2",
+                           residual=self.pq_residual)
+                cents_unpad = self.centroids_exp[:, : c.dims]
+                if self.bucket_codes is not None:
+                    bias = (self.bucket_bias if slot_mask is None
+                            else _bucket_bias(self.buckets_slots, valid, c.sq_norms, l2=False))
+                    scores, slots = _ivf_probe_scan_pq_contig(
+                        qt, q_raw, *cents, cents_unpad, self.slice_bias, self.buckets_slots,
+                        self.bucket_codes, self.pq.codebooks, c.vectors, c.scales, bias, sqn,
+                        alpha, **adc)
+                else:
+                    scores, slots = _ivf_probe_scan_pq(
+                        qt, q_raw, *cents, cents_unpad, self.slice_bias, self.buckets_slots,
+                        self.codes, self.pq.codebooks, c.vectors, c.scales, valid, sqn, alpha,
+                        **adc)
+            elif self.bucket_vectors is not None:
+                bias = (self.bucket_bias if slot_mask is None
+                        else _bucket_bias(self.buckets_slots, valid, c.sq_norms,
+                                          l2=(self.metric == "l2")))
+                scores, slots = _ivf_probe_scan_contig(
+                    qt, *cents, self.slice_bias, self.buckets_slots, self.bucket_vectors,
+                    self.bucket_scales, bias, sqn, alpha, nprobe=np_probe, k=k)
+            else:
+                scores, slots = _ivf_probe_scan(
+                    qt, *cents, self.slice_bias, self.buckets_slots, c.vectors, c.scales, valid,
+                    sqn, alpha, nprobe=np_probe, k=k)
+            d_dev, s_dev = D.finalize_results(self.metric, scores, slots, qsq)
+        with span("vector_search.wait"):
+            return (d_dev.cpu().numpy().astype(np.float32),
+                    s_dev.cpu().numpy().astype(np.int64))
+
     def search_arrays(self, q, k: int, slot_mask: torch.Tensor | None = None,
                       nprobe: int | None = None, mode: str = "auto"):
         """Returns (distances [B, k], slots [B, k], pks [B, k]).
 
         mode='exact' bypasses the probe and runs the exact flat scan over
         the whole corpus (vector_index_manager.dart:475)."""
-        c = self.corpus
-        qn = np.asarray(q)
-        b_est = 1 if qn.ndim == 1 else qn.shape[0]
-        if len(c) == 0:
-            return (np.full((b_est, k), np.inf, np.float32), np.full((b_est, k), -1, np.int64),
-                    np.full((b_est, k), None, dtype=object))
-        if not self.trained and mode != "exact" and not self.defer_retrain:
-            # library-direct index: lazy first train (engine-owned indexes
-            # stay on the flat scan until background maintenance trains)
-            self.train()
-        np_est = min(int(nprobe or self.nprobe),
-                     self.centroids_exp.shape[0] if self.trained else 1)
-        if (not self.trained or mode == "exact"
-                or (mode != "probe" and self._flat_beats_probe(b_est, np_est))):
-            tmp = FlatVectorIndex.__new__(FlatVectorIndex)
-            tmp.metric = self.metric
-            tmp.corpus = c
-            return tmp.search_arrays(q, k, slot_mask=slot_mask,
-                                     mode=mode if mode in ("exact", "fast") else "auto")
-
-        qx = np.asarray(q, np.float32)
-        if qx.ndim == 1:
-            qx = qx[None, :]
-        qsq = torch.from_numpy(np.sum(qx * qx, axis=1)).to(self.device)
-        if self.metric == "cosine":
-            qx = qx / np.maximum(np.linalg.norm(qx, axis=1, keepdims=True), 1e-12)
-        if c.d_pad != qx.shape[1]:
-            qx = np.pad(qx, ((0, 0), (0, c.d_pad - qx.shape[1])))
-        qt = torch.from_numpy(np.ascontiguousarray(qx)).to(self.device)
-
-        valid = c.valid if slot_mask is None else c.valid & slot_mask
-        alpha = D.metric_alpha(self.metric)
-        sqn = c.sq_norms if self.metric == "l2" else None
-        # nprobe counts SLICES: the scan budget is ~nprobe*cap rows
-        np_probe = min(int(nprobe or self.nprobe), self.centroids_exp.shape[0])
-        # PQ re-rank pool: the JAX package's recall-derived floor of 512
-        pq_rr = self.pq_rerank or max(self.rerank_factor * k, 51 * k, 512)
-        cents = (self.centroids, self._slice_cluster_dev)
-        if self.pq is not None and (self.bucket_codes is not None or self.codes is not None):
-            q_raw = qt[:, : c.dims]
-            adc = dict(nprobe=np_probe, k=k, rerank=pq_rr,
-                       adc_metric="dot" if self.metric == "dot" else "l2",
-                       residual=self.pq_residual)
-            cents_unpad = self.centroids_exp[:, : c.dims]
-            if self.bucket_codes is not None:
-                bias = (self.bucket_bias if slot_mask is None
-                        else _bucket_bias(self.buckets_slots, valid, c.sq_norms, l2=False))
-                scores, slots = _ivf_probe_scan_pq_contig(
-                    qt, q_raw, *cents, cents_unpad, self.slice_bias, self.buckets_slots,
-                    self.bucket_codes, self.pq.codebooks, c.vectors, c.scales, bias, sqn,
-                    alpha, **adc)
-            else:
-                scores, slots = _ivf_probe_scan_pq(
-                    qt, q_raw, *cents, cents_unpad, self.slice_bias, self.buckets_slots,
-                    self.codes, self.pq.codebooks, c.vectors, c.scales, valid, sqn, alpha,
-                    **adc)
-        elif self.bucket_vectors is not None:
-            bias = (self.bucket_bias if slot_mask is None
-                    else _bucket_bias(self.buckets_slots, valid, c.sq_norms,
-                                      l2=(self.metric == "l2")))
-            scores, slots = _ivf_probe_scan_contig(
-                qt, *cents, self.slice_bias, self.buckets_slots, self.bucket_vectors,
-                self.bucket_scales, bias, sqn, alpha, nprobe=np_probe, k=k)
-        else:
-            scores, slots = _ivf_probe_scan(
-                qt, *cents, self.slice_bias, self.buckets_slots, c.vectors, c.scales, valid,
-                sqn, alpha, nprobe=np_probe, k=k)
-        d_dev, s_dev = D.finalize_results(self.metric, scores, slots, qsq)
-        dist_np = d_dev.cpu().numpy().astype(np.float32)
-        slot_np = s_dev.cpu().numpy().astype(np.int64)
-        return dist_np, slot_np, c.pks_for_slots(slot_np)
+        flat = self._flat_view(q, nprobe, mode)
+        if flat is not None:
+            return flat[0].search_arrays(q, k, slot_mask=slot_mask, mode=flat[1])
+        dist, slots = self._probe(q, k, slot_mask, nprobe)
+        with span("vector_search.results"):
+            return dist, slots, self.corpus.pks_for_slots(slots)
 
     def search(self, q, top_k: int = 10, threshold=None, slot_mask=None, nprobe=None,
                mode: str = "auto") -> list[VectorSearchResult]:
-        dist, slots, pks = self.search_arrays(q, top_k, slot_mask, nprobe, mode)
-        dist, slots, pks = dist[0], slots[0], pks[0]
-        score = D.distances_to_scores(
-            self.metric, torch.from_numpy(np.where(np.isfinite(dist), dist, 0))).numpy()
-        out = []
-        for j in range(len(slots)):
-            if slots[j] < 0 or not np.isfinite(dist[j]):
-                continue
-            if threshold is not None and dist[j] > threshold:
-                continue
-            out.append(VectorSearchResult(primary_key=pks[j], distance=float(dist[j]),
-                                          score=float(score[j])))
-        return out
+        flat = self._flat_view(q, nprobe, mode)
+        if flat is not None:
+            return flat[0].search(q, top_k, threshold, slot_mask, mode=flat[1])
+        dist, slots = self._probe(q, top_k, slot_mask, nprobe)
+        with span("vector_search.results"):
+            return hits_of(self.metric, dist[0], slots[0],
+                           self.corpus.pks_for_slots(slots[0]), threshold)
 
     # --- persistence ----------------------------------------------------------
 
