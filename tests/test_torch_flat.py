@@ -11,6 +11,8 @@ runs the kernels' plain versions; the JAX fused mode runs Pallas in
 interpret mode.
 """
 
+import unittest.mock as mock
+
 import numpy as np
 import pytest
 import torch
@@ -238,3 +240,127 @@ def test_maybe_compact_rule():
     t_idx.delete(list(range(5, 12)))
     assert t_idx.maybe_compact()
     assert t_idx.corpus.deleted_count == 0 and len(t_idx) == 88
+
+
+# --------------------------------------------------------------------------
+# The results stage: slots -> pks and hits -> result objects, held to the
+# JAX package's loops on the same arrays
+# --------------------------------------------------------------------------
+
+
+def _slot_table(cap=40):
+    """A slot table of int and str pks, tombstones (None) and never-used
+    slots, with the capacity it belongs to."""
+    table = np.empty(cap, dtype=object)
+    table[:30] = [j if j % 3 else f"pk{j}" for j in range(30)]
+    table[[4, 17]] = None  # tombstoned
+    return table, cap
+
+
+def _hit_row(case, metric):
+    """(dist f32, slots i64, threshold, top_k) for one query's results."""
+    cap = _slot_table()[1]
+    base = np.float32(-0.5) if metric == "dot" else np.float32(0.0)
+    dist = (base + np.arange(14, dtype=np.float32) * np.float32(0.0625)
+            + np.float32(1e-3)).astype(np.float32)
+    dist[1] = np.float32(-0.0)
+    dist[5], dist[8], dist[11] = np.nan, np.inf, -np.inf
+    slots = np.array([0, 3, -1, 5, cap, 6, 9, 4, 12, cap + 3, 13, 14, 2, -1], np.int64)
+    threshold, top_k = None, 14
+    if case == "threshold_mid":
+        threshold = float((dist[6] + dist[7]) / 2)
+    elif case == "threshold_equal":
+        threshold = float(dist[9])
+    elif case == "threshold_not_f32":
+        threshold = float(dist[9]) - 1e-12  # below dist[9] in f64, equal in f32
+    elif case == "no_hit":
+        dist = np.full(10, np.inf, np.float32)
+        slots = np.full(10, -1, np.int64)
+        top_k = 10
+    elif case == "short":
+        dist, slots = dist[:3].copy(), slots[:3].copy()
+    return dist, slots, threshold, top_k
+
+
+def _same_hits(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert isinstance(g, VectorSearchResult)
+        assert g.primary_key is w.primary_key
+        assert g.record is None and w.record is None
+    as_bits = lambda rs, f: np.array([getattr(r, f) for r in rs], np.float64).view(np.uint64)  # noqa: E731
+    np.testing.assert_array_equal(as_bits(got, "distance"), as_bits(want, "distance"))
+    np.testing.assert_array_equal(as_bits(got, "score"), as_bits(want, "score"))
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2", "dot"])
+@pytest.mark.parametrize("case", ["mixed", "threshold_mid", "threshold_equal",
+                                  "threshold_not_f32", "no_hit", "short"])
+def test_results_stage_matches_reference_loop(metric, case):
+    """`FlatVectorIndex.search`'s results stage against the JAX package's
+    loop (its `search` over `pks_for_slots`) on the same arrays: the same
+    hits in the same order, pks the same objects, distances bit for bit.
+    Scores are bit for bit with the JAX loop's own score map on cosine and
+    l2; on dot, torch's sigmoid and XLA's logistic differ by a few ulp on
+    some inputs, so the dot scores are held bit for bit to the JAX loop
+    running the port's score map, and to the JAX map within 1e-6."""
+    from tostore_tpu.ops import distance as JD
+    from tostore_tpu_torch.ops import distance as TD
+
+    table, cap = _slot_table()
+    dist, slots, threshold, top_k = _hit_row(case, metric)
+    t_idx, j_idx = TFlat(8, metric, device="cpu"), JFlat(8, metric)
+    for c in (t_idx.corpus, j_idx.corpus):
+        c._slot_pks, c.capacity = table.copy(), cap
+    q = np.ones(8, np.float32)
+    with mock.patch.object(t_idx, "_scan", return_value=(dist[None], slots[None])):
+        got = t_idx.search(q, top_k, threshold)
+    with mock.patch.object(j_idx, "search_arrays", return_value=(
+            dist[None], slots[None], j_idx.corpus.pks_for_slots(slots[None]))):
+        want = j_idx.search(q, top_k, threshold)
+        with mock.patch.object(JD, "distances_to_scores", lambda m, d: TD.distances_to_scores(
+                m, torch.from_numpy(np.array(d))).numpy()):
+            want_port_map = j_idx.search(q, top_k, threshold)
+    _same_hits(got, want_port_map)
+    if metric == "dot":
+        _same_hits(got, [VectorSearchResult(w.primary_key, w.distance, g.score)
+                         for g, w in zip(got, want)])
+        np.testing.assert_allclose([r.score for r in got], [r.score for r in want],
+                                   rtol=1e-6, atol=0)
+    else:
+        _same_hits(got, want)
+    # the comparison with the threshold is made in float32, as numpy >= 2
+    # compares a float32 with a Python float
+    # (on dot, the -0.0 at place 1 lies above the cut mid-row)
+    n_kept = {"mixed": 9, "threshold_mid": 4 if metric == "dot" else 5, "threshold_equal": 7,
+              "threshold_not_f32": 7, "no_hit": 0, "short": 2}[case]
+    assert len(got) == n_kept
+
+
+@pytest.mark.parametrize("b", [1, 8, 256])
+def test_pks_for_slots_matches_reference(b):
+    """[B, k] slots, in and out of range, over a slot table with int and
+    str pks and tombstones (pk None), against the JAX package's
+    `pks_for_slots` on the same table after the same mutations."""
+    from tostore_tpu.vector.corpus import DeviceCorpus as JCorpus
+    from tostore_tpu_torch.vector.corpus import DeviceCorpus as TCorpus
+
+    rng = np.random.default_rng(b)
+    dims, n = 8, 300
+    pks = [j if j % 4 else f"s{j}" for j in range(n)]
+    x = rng.standard_normal((n, dims)).astype(np.float32)
+    t_c, j_c = TCorpus(dims, device="cpu"), JCorpus(dims)
+    dead = [pks[j] for j in rng.choice(n, 40, replace=False)]
+    for c in (t_c, j_c):
+        c.upsert(pks, x)
+        assert c.delete(dead) == 40
+    assert t_c.capacity == j_c.capacity and t_c.capacity > n
+    slots = rng.integers(-3, t_c.capacity + 5, (b, 16))
+    live = next(pk for pk in pks[1:] if pk not in dead)
+    slots[0, :4] = [-1, t_c.capacity, t_c.capacity - 1, t_c._pk_slot[live]]
+    got, want = t_c.pks_for_slots(slots), j_c.pks_for_slots(slots)
+    assert got.shape == want.shape == (b, 16) and got.dtype == object
+    for g, w in zip(got.reshape(-1).tolist(), want.reshape(-1).tolist()):
+        assert g is w
+    assert got[0, 3] is live and got[0, 0] is None and got[0, 1] is None
+    assert any(t_c._slot_pks[s] is None for s in slots[(slots >= 0) & (slots < n)])

@@ -195,6 +195,20 @@ def test_sharded_flat_index_matches_reference_step_by_step(shape, dtype, metric)
         _assert_results_match(td, tp, jd, jp, t_idx.metric, q, TOL[dtype])
         (td, tp), (jd, jp) = both(lambda i: i.search_arrays(q[0], 3))  # one query, odd under dp
         _assert_results_match(td, tp, jd, jp, t_idx.metric, q[:1], TOL[dtype])
+        # search's results stage against the JAX package's loop on the
+        # port's own arrays: the same hits, pks the same objects, distances
+        # and scores bit for bit
+        arrays = t_idx.search_arrays(q[0], k)
+        thr = float(np.median(arrays[0][0][np.isfinite(arrays[0][0])]))
+        for threshold in (None, thr):
+            got = t_idx.search(q[0], k, threshold=threshold)
+            with mock.patch.object(j_idx, "search_arrays", return_value=arrays):
+                want = j_idx.search(q[0], k, threshold=threshold)
+            bits = [np.array([(r.distance, r.score) for r in rs], np.float64).view(np.uint64)
+                    for rs in (got, want)]
+            np.testing.assert_array_equal(*bits)
+            assert all(g.primary_key is w.primary_key for g, w in zip(got, want))
+            assert len(got) == (k if threshold is None else (k + 1) // 2)
 
     x = rng.standard_normal((700, dims)).astype(np.float32)
     ts, js = both(lambda i: i.upsert(list(range(700)), x))

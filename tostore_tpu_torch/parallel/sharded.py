@@ -24,7 +24,8 @@ from ..ops import topk as T
 from ..ops.runtime import NEG_INF, ROW_BLOCK, round_up
 from ..ops.topk import top_k_first
 from ..utils.bf16 import BF16Array
-from ..vector.corpus import _UPLOAD_BYTES, quantize_int8
+from ..vector.corpus import _UPLOAD_BYTES, pks_at, quantize_int8
+from ..vector.flat import hits_of
 from .mesh import Mesh, Striped, replicated_from_host, shard_count
 
 # rows of a stripe scored at once by the Lloyd step
@@ -435,25 +436,8 @@ class ShardedFlatIndex:
 
     def search(self, q, top_k: int = 10, threshold=None, slot_mask=None, **kw):
         """kw (e.g. nprobe) forwards to the subclass's search_arrays."""
-        from ..models.results import VectorSearchResult
-
         dist, pks = self.search_arrays(q, top_k, slot_mask=slot_mask, **kw)
-        dist, pks = dist[0], pks[0]
-        score = D.distances_to_scores(
-            self.metric, torch.from_numpy(np.where(np.isfinite(dist), dist, 0))
-        ).numpy()
-        out = []
-        for j in range(len(pks)):
-            if pks[j] is None or not np.isfinite(dist[j]):
-                continue
-            if threshold is not None and dist[j] > threshold:
-                continue
-            out.append(
-                VectorSearchResult(
-                    primary_key=pks[j], distance=float(dist[j]), score=float(score[j])
-                )
-            )
-        return out
+        return hits_of(self.metric, dist[0], np.not_equal(pks[0], None), pks[0], threshold)
 
     # --- search helpers shared with the IVF subclass -------------------------
 
@@ -495,10 +479,7 @@ class ShardedFlatIndex:
         dists = D.scores_to_distances_np(self.metric, scores, qsq)
         miss = scores <= NEG_INF / 2
         dists[miss] = np.inf
-        pks = np.empty(idx_np.shape, dtype=object)
-        flat = pks.reshape(-1)
-        for j, s in enumerate(idx_np.reshape(-1)):
-            flat[j] = self._slot_pks[s] if 0 <= s < self.capacity else None
+        pks = pks_at(self._slot_pks, self.capacity, idx_np)
         pks[miss] = None
         return dists, pks
 

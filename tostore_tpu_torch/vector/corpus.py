@@ -49,6 +49,15 @@ def quantize_int8(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return enc, dq
 
 
+def pks_at(slot_pks: np.ndarray, capacity: int, slots: np.ndarray) -> np.ndarray:
+    """slot indices -> pks (object array of the slots' shape; None for a
+    slot outside [0, capacity)), in one fancy index."""
+    out = np.empty(slots.shape, dtype=object)
+    keep = (slots >= 0) & (slots < capacity)
+    out[keep] = slot_pks[slots[keep]]
+    return out
+
+
 class DeviceCorpus:
     """Mutable [capacity, D_pad] device matrix with tombstones and PK map."""
 
@@ -286,12 +295,7 @@ class DeviceCorpus:
 
     def pks_for_slots(self, slots: np.ndarray) -> np.ndarray:
         """slot indices -> pks (object array; None for invalid/padded)."""
-        out = np.empty(slots.shape, dtype=object)
-        flat = slots.reshape(-1)
-        res = out.reshape(-1)
-        for j, s in enumerate(flat):
-            res[j] = self._slot_pks[s] if 0 <= s < self.capacity else None
-        return out
+        return pks_at(self._slot_pks, self.capacity, slots)
 
     def slots_for_pks(self, pks) -> np.ndarray:
         return np.asarray([self._pk_slot.get(pk, -1) for pk in pks], np.int64)

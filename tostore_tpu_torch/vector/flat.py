@@ -29,26 +29,23 @@ _METRIC_ALIASES = {
 }
 
 
-def hits_of(metric: str, dist: np.ndarray, slots: np.ndarray, pks: np.ndarray,
+def hits_of(metric: str, dist: np.ndarray, hit: np.ndarray, pks: np.ndarray,
             threshold: float | None) -> list[VectorSearchResult]:
-    """One query's results with the reference's semantics: no-hit slots
-    and non-finite distances dropped, the distance threshold applied, the
-    score mapped from the distance."""
+    """One query's results with the reference's semantics: places where
+    `hit` is False (no row) and non-finite distances dropped, the distance
+    threshold applied, the score mapped from the distance; in the order
+    given."""
+    finite = np.isfinite(dist)
     score = D.distances_to_scores(
-        metric, torch.from_numpy(np.where(np.isfinite(dist), dist, 0))
+        metric, torch.from_numpy(np.where(finite, dist, 0))
     ).numpy()
-    out = []
-    for j in range(len(slots)):
-        if slots[j] < 0 or not np.isfinite(dist[j]):
-            continue
-        if threshold is not None and dist[j] > threshold:
-            continue
-        out.append(
-            VectorSearchResult(
-                primary_key=pks[j], distance=float(dist[j]), score=float(score[j])
-            )
-        )
-    return out
+    keep = hit & finite
+    if threshold is not None:
+        keep &= ~(dist > threshold)
+    return [
+        VectorSearchResult(primary_key=p, distance=d, score=s)
+        for p, d, s in zip(pks[keep].tolist(), dist[keep].tolist(), score[keep].tolist())
+    ]
 
 
 class FlatVectorIndex:
@@ -169,7 +166,7 @@ class FlatVectorIndex:
         """Single-query search with reference result semantics."""
         dist, slots = self._scan(q, top_k, slot_mask, mode)
         with span("vector_search.results"):
-            return hits_of(self.metric, dist[0], slots[0],
+            return hits_of(self.metric, dist[0], slots[0] >= 0,
                            self.corpus.pks_for_slots(slots[0]), threshold)
 
     # --- persistence ---------------------------------------------------------

@@ -1178,7 +1178,7 @@ class IVFVectorIndex:
             return flat[0].search(q, top_k, threshold, slot_mask, mode=flat[1])
         dist, slots = self._probe(q, top_k, slot_mask, nprobe)
         with span("vector_search.results"):
-            return hits_of(self.metric, dist[0], slots[0],
+            return hits_of(self.metric, dist[0], slots[0] >= 0,
                            self.corpus.pks_for_slots(slots[0]), threshold)
 
     # --- persistence ----------------------------------------------------------
