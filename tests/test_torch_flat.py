@@ -364,3 +364,70 @@ def test_pks_for_slots_matches_reference(b):
         assert g is w
     assert got[0, 3] is live and got[0, 0] is None and got[0, 1] is None
     assert any(t_c._slot_pks[s] is None for s in slots[(slots >= 0) & (slots < n)])
+
+
+# ----------------------------------------------------------------------------
+# one query preparation for the flat scan and the IVF probe
+# ----------------------------------------------------------------------------
+
+
+def _prepared_by(index, q, monkeypatch, module):
+    """What `index.search_arrays(q)` hands its scan: the prepared queries
+    and their squared norms, caught where `module` calls the helper."""
+    real, got = module.prep_queries, []
+
+    def caught(*a):
+        got.append(real(*a))
+        return got[-1]
+
+    monkeypatch.setattr(module, "prep_queries", caught)
+    index.search_arrays(q, 5, **({"mode": "probe"} if index.index_type == "ivf" else {}))
+    (out,) = got
+    return out
+
+
+@pytest.mark.parametrize("single", [False, True])
+@pytest.mark.parametrize("metric", ["cosine", "l2", "dot"])
+def test_flat_and_ivf_prepare_queries_alike(metric, single, monkeypatch):
+    from tostore_tpu_torch import IVFVectorIndex
+    from tostore_tpu_torch.vector import flat as F
+    from tostore_tpu_torch.vector import ivf as V
+
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((600, 40)).astype(np.float32) * 3
+    q = rng.standard_normal(40).astype(np.float32) if single else \
+        rng.standard_normal((5, 40)).astype(np.float32)
+    flat = TFlat(40, metric, "bfloat16", device="cpu")
+    flat.upsert(list(range(600)), x)
+    ivf = IVFVectorIndex(40, metric, "bfloat16", num_clusters=8, nprobe=2, min_train_size=100,
+                         device="cpu")
+    ivf.upsert(list(range(600)), x)
+    fq, fsq, fsingle = _prepared_by(flat, q, monkeypatch, F)
+    iq, isq, isingle = _prepared_by(ivf, q, monkeypatch, V)
+    assert torch.equal(fq, iq) and torch.equal(fsq, isq) and fsingle == isingle == single
+    # the queries as the flat scan prepared them before the helper
+    q2 = np.atleast_2d(q).astype(np.float32)
+    want = q2 / np.maximum(np.linalg.norm(q2, axis=1, keepdims=True), 1e-12) \
+        if metric == "cosine" else q2
+    want = np.pad(want, ((0, 0), (0, flat.corpus.d_pad - 40)))
+    np.testing.assert_array_equal(fq.numpy(), want)
+    np.testing.assert_array_equal(fsq.numpy(), np.sum(q2 * q2, axis=1))
+
+
+@pytest.mark.parametrize("shape", [(39,), (2, 41)])
+def test_flat_and_ivf_refuse_a_query_of_another_dimension(shape):
+    from tostore_tpu_torch import IVFVectorIndex
+
+    x = np.random.default_rng(3).standard_normal((600, 40)).astype(np.float32)
+    flat = TFlat(40, "cosine", "bfloat16", device="cpu")
+    flat.upsert(list(range(600)), x)
+    ivf = IVFVectorIndex(40, "cosine", "bfloat16", num_clusters=8, nprobe=2, min_train_size=100,
+                         device="cpu")
+    ivf.upsert(list(range(600)), x)
+    assert ivf.trained
+    q = np.ones(shape, np.float32)
+    want = f"query dims {shape[-1]} != index dims 40"
+    for call in (lambda: flat.search_arrays(q, 5), lambda: flat.search(q, 5),
+                 lambda: ivf.search_arrays(q, 5, mode="probe"), lambda: ivf.search(q, 5)):
+        with pytest.raises(ValueError, match=want):
+            call()

@@ -1,8 +1,10 @@
 """The port's spans on torch.profiler's timeline (`utils/spans.py`): each
 stage of `Database.vector_search` as `tostore.vector_search.<stage>`,
 nested in the engine's `tostore.vector_search`, in a `profile_trace`
-Chrome trace; no `record_function` entered while no profiler records; the
-engine's `vector_search` timer around the whole method.
+Chrome trace, and the IVF probe's own stages (`probes`, `scan`, `select`)
+inside its `dispatch` on each of its four routes; no `record_function`
+entered while no profiler records; the engine's `vector_search` timer
+around the whole method.
 
 The cases on the card (marker `cuda`) also place the search's host syncs
 in the stages that wait for the device. This file imports no JAX, so it
@@ -43,8 +45,15 @@ DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
 DIMS = 16
 
 
-def _schema(index_type):
-    vconf = (VectorIndexConfig(index_type="ivf", metric="l2", num_clusters=8, nprobe=4)
+PROBE_STAGES = ["probes", "scan", "select"]
+# the IVF probe's four routes: raw rows over the contiguous copy (K3) or by
+# gather, PQ codes over the contiguous copy (K4) or by gather
+ROUTES = ["raw", "raw_gather", "pq", "pq_gather"]
+
+
+def _schema(index_type, pq=False):
+    vconf = (VectorIndexConfig(index_type="ivf", metric="l2", num_clusters=8, nprobe=4,
+                               pq_subspaces=8 if pq else 0, pq_centroids=16 if pq else 0)
              if index_type == "ivf" else VectorIndexConfig(index_type="flat"))
     return TableSchema(
         name="docs",
@@ -55,15 +64,24 @@ def _schema(index_type):
     )
 
 
-def _open(index_type, device):
+def _open(index_type, device, route="raw"):
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ for sm_90a")
-    db = ToStoreTPU.memory(schemas=[_schema(index_type)], device=device)
+    db = ToStoreTPU.memory(schemas=[_schema(index_type, pq=route.startswith("pq"))],
+                           device=device)
     x = np.random.default_rng(3).standard_normal((600, DIMS)).astype(np.float32)
     db.batch_insert("docs", [{"id": i + 1, "n": i, "emb": x[i].tolist()} for i in range(600)])
     db.vector_search("docs", "emb", x[0], top_k=1)  # flush the rows to the index
     if index_type == "ivf":
         assert db.engine.run_vector_maintenance() == 1  # the engine's own training
+        idx = db.engine._table("docs").vector_index_for("emb")
+        if route == "raw_gather":
+            idx.CONTIG_MAX_BYTES = 0
+            idx._refresh_bucket_vectors()
+        elif route == "pq_gather":
+            idx.bucket_codes = None
+        assert (idx.bucket_vectors is not None) == (route == "raw")
+        assert (idx.bucket_codes is not None) == (route == "pq")
     return db, x
 
 
@@ -111,6 +129,10 @@ def _stages(root):
     return [c.stage for c in root.children]
 
 
+def _descendants(span):
+    return [d for c in span.children for d in [c.stage, *_descendants(c)]]
+
+
 def _children(root, stage):
     (s,) = [c for c in root.children if c.stage == stage]
     return [c.stage for c in s.children]
@@ -131,19 +153,31 @@ def test_flat_search_stages_nest_in_order(device, tmp_path):
         assert [_children(root, s) for s in STAGES] == [mask, [], ["bias"], [], [], []]
         times = [(c.t0, c.t1) for c in root.children]
         assert all(a1 <= b0 for (_, a1), (b0, _) in zip(times, times[1:]))
+        assert not set(_descendants(root)) & set(PROBE_STAGES)  # the probe's stages
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("device", DEVICES)
-def test_ivf_probe_search_stages_nest_in_order(device, tmp_path):
-    db, x = _open("ivf", device)
+def test_ivf_probe_search_stages_nest_in_order(device, route, tmp_path):
+    db, x = _open("ivf", device, route)
     try:
-        roots, _ = _trace(db, tmp_path, [{"q": x[7], "top_k": 10, "mode": "probe"}])
+        cond = QueryCondition().where("n", ">=", 300)
+        roots, _ = _trace(db, tmp_path, [{"q": x[7], "top_k": 10, "mode": "probe"},
+                                         {"q": x[400], "top_k": 10, "mode": "probe",
+                                          "condition": cond}])
     finally:
         db.close()
-    (root,) = roots
-    assert root.name == "tostore.vector_search" and _stages(root) == STAGES
-    # the probe's dispatch: no flat bias under it (the flat fallback has one)
-    assert all(_children(root, stage) == [] for stage in STAGES)
+    assert [r.name for r in roots] == ["tostore.vector_search"] * 2
+    for root, mask in zip(roots, ([], ["mask"])):
+        assert _stages(root) == STAGES
+        # the probe's dispatch holds its three stages in order, and no flat
+        # bias (the flat fallback has one); nothing nests in them
+        assert [_children(root, s) for s in STAGES] == [mask, [], PROBE_STAGES, [], [], []]
+        (dispatch,) = [c for c in root.children if c.stage == "dispatch"]
+        assert all(c.children == [] for c in dispatch.children)
+        times = [(c.t0, c.t1) for c in dispatch.children]
+        assert all(a1 <= b0 for (_, a1), (b0, _) in zip(times, times[1:]))
+        assert dispatch.t0 <= times[0][0] and times[-1][1] <= dispatch.t1
 
 
 def test_every_timed_engine_operation_is_a_span(flat_cpu, tmp_path):
@@ -171,6 +205,21 @@ def test_no_record_function_without_a_profiler(flat_cpu, monkeypatch):
     db.insert("docs", {"id": 1001, "n": 1001, "emb": x[1].tolist()})
     assert len(db.query("docs").where("n", ">=", 590).fetch()) == 11
     assert db.vector_search("docs", "emb", x[1], top_k=1)[0].primary_key in (2, 1001)
+
+
+def test_no_record_function_in_the_probe_without_a_profiler(monkeypatch):
+    class Refused:
+        def __init__(self, *a, **kw):
+            raise AssertionError("record_function entered with no profiler open")
+
+    db, x = _open("ivf", "cpu")
+    try:
+        monkeypatch.setattr(autograd_profiler, "record_function", Refused)
+        monkeypatch.setattr(torch.profiler, "record_function", Refused)
+        hits = db.vector_search("docs", "emb", x[400], top_k=3, mode="probe")
+        assert hits[0].primary_key == 401
+    finally:
+        db.close()
 
 
 def test_search_timer_covers_the_post_stage(flat_cpu, monkeypatch):

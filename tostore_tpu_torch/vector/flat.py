@@ -48,6 +48,30 @@ def hits_of(metric: str, dist: np.ndarray, hit: np.ndarray, pks: np.ndarray,
     ]
 
 
+def prep_queries(corpus: DeviceCorpus, metric: str, q) -> tuple[torch.Tensor, torch.Tensor, bool]:
+    """The queries as a scan of `corpus` reads them, on its device: [B,
+    d_pad] f32 rows (unit length for cosine, zero-padded), the squared
+    norms of the queries as given [B] f32, and whether `q` was one query.
+    A query of another dimension than the corpus's raises ValueError."""
+    q = np.asarray(q, np.float32)
+    single = q.ndim == 1
+    if single:
+        q = q[None, :]
+    if q.shape[1] != corpus.dims:
+        raise ValueError(f"query dims {q.shape[1]} != index dims {corpus.dims}")
+    qsq = torch.from_numpy(np.sum(q * q, axis=1)).to(corpus.device)
+    if metric == "cosine":
+        q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    if corpus.d_pad != q.shape[1]:
+        q = np.pad(q, ((0, 0), (0, corpus.d_pad - q.shape[1])))
+    return torch.from_numpy(np.ascontiguousarray(q)).to(corpus.device), qsq, single
+
+
+def to_host(dist: torch.Tensor, slots: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """A search's copy down: (distances f32, slots int64) as host arrays."""
+    return dist.cpu().numpy().astype(np.float32), slots.cpu().numpy().astype(np.int64)
+
+
 class FlatVectorIndex:
     """Flat full-scan index: metric in {'cosine','l2','dot'/'innerProduct'}.
 
@@ -101,19 +125,7 @@ class FlatVectorIndex:
     # --- search -----------------------------------------------------------------
 
     def _prep_queries(self, q: np.ndarray):
-        q = np.asarray(q, np.float32)
-        single = q.ndim == 1
-        if single:
-            q = q[None, :]
-        if q.shape[1] != self.corpus.dims:
-            raise ValueError(f"query dims {q.shape[1]} != index dims {self.corpus.dims}")
-        qsq = torch.from_numpy(np.sum(q * q, axis=1)).to(self.device)
-        if self.metric == "cosine":
-            n = np.linalg.norm(q, axis=1, keepdims=True)
-            q = q / np.maximum(n, 1e-12)
-        if self.corpus.d_pad != q.shape[1]:
-            q = np.pad(q, ((0, 0), (0, self.corpus.d_pad - q.shape[1])))
-        return torch.from_numpy(np.ascontiguousarray(q)).to(self.device), qsq, single
+        return prep_queries(self.corpus, self.metric, q)
 
     def _bias_alpha(self, slot_mask: torch.Tensor | None):
         """Per-slot additive bias folding the metric term, tombstones and
@@ -148,8 +160,7 @@ class FlatVectorIndex:
             )
             d_dev, s_dev = D.finalize_results(self.metric, scores, idx, qsq)
         with span("vector_search.wait"):
-            return (d_dev.cpu().numpy().astype(np.float32),
-                    s_dev.cpu().numpy().astype(np.int64))
+            return to_host(d_dev, s_dev)
 
     def search_arrays(self, q: np.ndarray, k: int,
                       slot_mask: torch.Tensor | None = None,

@@ -37,7 +37,7 @@ from ..ops.runtime import NEG_INF, f32_dot, round_up, score_dtype
 from ..ops.topk import MISS_FLOOR, top_k_first
 from ..utils.spans import span
 from .corpus import DeviceCorpus
-from .flat import _METRIC_ALIASES, FlatVectorIndex, hits_of
+from .flat import _METRIC_ALIASES, FlatVectorIndex, hits_of, prep_queries, to_host
 from .pq import (
     PQCodebook,
     _kmeans_all_subspaces,
@@ -96,24 +96,37 @@ def _final_topk(s, slots, k: int):
     return ts, torch.gather(slots, 1, ti)
 
 
-def _ivf_probe_scan(q, centroids, slice_cluster, slice_bias, buckets_slots, vectors,
-                    scales, valid, sq_norms, alpha, *, nprobe: int, k: int):
-    """Raw probe by slot gather (the JAX package's XLA path), one query at
-    a time to bound the gathered [nprobe * cap, D] block. Returns (scores
-    [B, k] desc, slots [B, k])."""
-    cap = buckets_slots.shape[1]
-    probe = _select_probes(q, centroids, slice_cluster, slice_bias, sq_norms is not None, nprobe)
-    out_s, out_i = [], []
+# Each probe route is three stages: probe selection (`_select_probes`), a
+# scan that scores every candidate of the probed slices (probes in probe
+# order, each slice in row order), and a selection over those candidates
+# (`_final_topk`, or `_rerank` after ADC). `IVFVectorIndex._probe` runs
+# them as its `probes`, `scan` and `select` spans; the `_ivf_probe_scan*`
+# functions run them back to back for the sharded index and the scripts.
+
+
+def _scan_contig(q, probe, buckets_slots, bucket_vectors, bucket_scale, bucket_bias, alpha):
+    """Raw candidates from the bucket-CONTIGUOUS corpus copy with K3
+    (bucket_probe_scores): one sequential [cap, D] block per (query,
+    probe). bucket_bias folds validity, l2 norms and any per-call slot
+    mask. Returns (scores [B, nprobe * cap], slots [B, nprobe * cap])."""
+    b = q.shape[0]
+    qf = (q * alpha).to(score_dtype(bucket_vectors.dtype)).contiguous()
+    s = bucket_probe_scores(qf, probe, bucket_vectors, bucket_bias, bucket_scale)
+    return s.reshape(b, -1), buckets_slots[probe].reshape(b, -1)
+
+
+def _scan_gather(q, probe, buckets_slots, vectors, scales, valid, sq_norms, alpha):
+    """Raw candidates by slot gather (the JAX package's XLA path), one
+    query at a time to bound the gathered [nprobe * cap, D] block: (scores
+    [B, nprobe * cap], NEG_INF where no live row; slots)."""
+    slots = buckets_slots[probe].reshape(q.shape[0], -1)
+    out = []
     for b in range(q.shape[0]):
-        slots = buckets_slots[probe[b]].reshape(1, nprobe * cap)
-        safe = torch.clamp(slots, min=0)
+        safe = torch.clamp(slots[b : b + 1], min=0)
         s = _rescore(q[b : b + 1], safe, vectors, scales, sq_norms, alpha)
-        ok = (slots >= 0) & valid[safe]
-        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
-        ts, ti = _final_topk(s, slots, k)
-        out_s.append(ts)
-        out_i.append(ti)
-    return torch.cat(out_s), torch.cat(out_i)
+        ok = (slots[b : b + 1] >= 0) & valid[safe]
+        out.append(torch.where(ok, s, torch.full_like(s, NEG_INF)))
+    return torch.cat(out), slots
 
 
 def _pq_tables(codebooks, q_raw, cents_unpad, probe, adc_metric: str, residual: bool):
@@ -126,81 +139,95 @@ def _pq_tables(codebooks, q_raw, cents_unpad, probe, adc_metric: str, residual: 
             torch.zeros((b, p), dtype=torch.float32, device=q_raw.device))
 
 
+def _scan_pq_contig(q_raw, probe, cents_unpad, buckets_slots, bucket_codes, codebooks,
+                    bucket_bias, *, adc_metric: str, residual: bool):
+    """ADC candidates over bucket-contiguous CODES with K4
+    (adc_bucket_scores). bucket_bias is pure validity (0 / NEG_INF): ADC
+    distances are complete. With `residual` (IVFADC) the tables are built
+    per probed cluster from q - centroid[probe]. Returns (ADC scores [B,
+    nprobe * cap], slots)."""
+    b = q_raw.shape[0]
+    tabs, offs = _pq_tables(codebooks, q_raw, cents_unpad, probe, adc_metric, residual)
+    s_adc = adc_bucket_scores(tabs, probe, bucket_codes, bucket_bias)
+    s_adc = (s_adc + offs[:, :, None]).reshape(b, -1)
+    return s_adc, buckets_slots[probe].reshape(b, -1)
+
+
+def _scan_pq_gather(q_raw, probe, cents_unpad, buckets_slots, codes, codebooks, valid, *,
+                    adc_metric: str, residual: bool):
+    """ADC candidates by code gather (the JAX package's XLA path), with f32
+    tables, one query at a time: (ADC scores [B, nprobe * cap], NEG_INF
+    where no live row; slots)."""
+    b, nprobe = probe.shape
+    cap = buckets_slots.shape[1]
+    m = codebooks.shape[0]
+    tabs, offs = _pq_tables(codebooks, q_raw, cents_unpad, probe, adc_metric, residual)
+    slots = buckets_slots[probe].reshape(b, nprobe * cap)
+    out = []
+    for i in range(b):
+        safe = torch.clamp(slots[i], min=0)
+        crow = codes[safe].long().reshape(nprobe, cap, m).transpose(1, 2)  # [P, M, cap]
+        d_adc = torch.gather(tabs[i], 2, crow).sum(dim=1)  # [P, cap]
+        s_adc = (-d_adc + offs[i][:, None]).reshape(nprobe * cap)
+        ok = (slots[i] >= 0) & valid[safe]
+        out.append(torch.where(ok, s_adc, torch.full_like(s_adc, NEG_INF)))
+    return torch.stack(out), slots
+
+
+def _rerank(q, s_adc, slots, vectors, scales, sq_norms, alpha, *, k: int, rerank: int):
+    """The PQ selection: a pool of the `rerank` best ADC candidates, scored
+    exactly against the raw rows, and their top-k (`_final_topk`). A dead
+    candidate carries ADC score NEG_INF (its slot may be reused)."""
+    cand_adc, ri = top_k_first(s_adc, min(rerank, s_adc.shape[1]), MISS_FLOOR)
+    cand = torch.gather(slots, 1, ri)  # [B, R]
+    csafe = torch.clamp(cand, min=0)
+    s = _rescore(q, csafe, vectors, scales, sq_norms, alpha)
+    ok = (cand >= 0) & (cand_adc > NEG_INF / 2)
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    return _final_topk(s, cand, k)
+
+
+def _ivf_probe_scan(q, centroids, slice_cluster, slice_bias, buckets_slots, vectors,
+                    scales, valid, sq_norms, alpha, *, nprobe: int, k: int):
+    """Raw probe by slot gather. Returns (scores [B, k] desc, slots [B, k])."""
+    probe = _select_probes(q, centroids, slice_cluster, slice_bias, sq_norms is not None, nprobe)
+    cand = _scan_gather(q, probe, buckets_slots, vectors, scales, valid, sq_norms, alpha)
+    return _final_topk(*cand, k)
+
+
 def _ivf_probe_scan_pq(q, q_raw, centroids, slice_cluster, cents_unpad, slice_bias,
                        buckets_slots, codes, codebooks, vectors, scales, valid, sq_norms,
                        alpha, *, nprobe: int, k: int, rerank: int, adc_metric: str,
                        residual: bool):
-    """PQ probe by code gather (the JAX package's XLA path): ADC over the
-    gathered codes with f32 tables selects a re-rank pool of `rerank`
-    candidates, which are scored exactly against the raw rows."""
-    cap = buckets_slots.shape[1]
-    m = codebooks.shape[0]
+    """PQ probe by code gather: ADC over the gathered codes selects a
+    re-rank pool of `rerank` candidates, which are scored exactly against
+    the raw rows."""
     probe = _select_probes(q, centroids, slice_cluster, slice_bias, sq_norms is not None, nprobe)
-    tabs, offs = _pq_tables(codebooks, q_raw, cents_unpad, probe, adc_metric, residual)
-    r = min(rerank, nprobe * cap)
-    out_s, out_i = [], []
-    for b in range(q.shape[0]):
-        slots = buckets_slots[probe[b]].reshape(nprobe * cap)
-        safe = torch.clamp(slots, min=0)
-        crow = codes[safe].long().reshape(nprobe, cap, m).transpose(1, 2)  # [P, M, cap]
-        d_adc = torch.gather(tabs[b], 2, crow).sum(dim=1)  # [P, cap]
-        s_adc = (-d_adc + offs[b][:, None]).reshape(nprobe * cap)
-        ok = (slots >= 0) & valid[safe]
-        s_adc = torch.where(ok, s_adc, torch.full_like(s_adc, NEG_INF))
-        _, ri = top_k_first(s_adc, r, MISS_FLOOR)
-        cand = slots[ri][None, :]
-        csafe = torch.clamp(cand, min=0)
-        s = _rescore(q[b : b + 1], csafe, vectors, scales, sq_norms, alpha)
-        okc = (cand >= 0) & valid[csafe]
-        s = torch.where(okc, s, torch.full_like(s, NEG_INF))
-        ts, ti = _final_topk(s, cand, k)
-        out_s.append(ts)
-        out_i.append(ti)
-    return torch.cat(out_s), torch.cat(out_i)
+    cand = _scan_pq_gather(q_raw, probe, cents_unpad, buckets_slots, codes, codebooks, valid,
+                           adc_metric=adc_metric, residual=residual)
+    return _rerank(q, *cand, vectors, scales, sq_norms, alpha, k=k, rerank=rerank)
 
 
 def _ivf_probe_scan_pq_contig(q, q_raw, centroids, slice_cluster, cents_unpad, slice_bias,
                               buckets_slots, bucket_codes, codebooks, vectors, scales,
                               bucket_bias, sq_norms, alpha, *, nprobe: int, k: int,
                               rerank: int, adc_metric: str, residual: bool):
-    """PQ probe over bucket-contiguous CODES: K4 (adc_bucket_scores)
-    selects a re-rank pool; the pool is re-scored exactly against the raw
-    rows. bucket_bias is pure validity (0 / NEG_INF): ADC distances are
-    complete. With `residual` (IVFADC) the tables are built per probed
-    cluster from q - centroid[probe]."""
-    cap = buckets_slots.shape[1]
-    b = q.shape[0]
+    """PQ probe over bucket-contiguous CODES: K4 selects a re-rank pool,
+    which is re-scored exactly against the raw rows."""
     probe = _select_probes(q, centroids, slice_cluster, slice_bias, sq_norms is not None, nprobe)
-    tabs, offs = _pq_tables(codebooks, q_raw, cents_unpad, probe, adc_metric, residual)
-    s_adc = adc_bucket_scores(tabs, probe, bucket_codes, bucket_bias)
-    s_adc = (s_adc + offs[:, :, None]).reshape(b, nprobe * cap)
-    slots = buckets_slots[probe].reshape(b, nprobe * cap)
-    r = min(rerank, nprobe * cap)
-    cand_adc, ri = top_k_first(s_adc, r, MISS_FLOOR)
-    cand = torch.gather(slots, 1, ri)  # [B, R]
-    csafe = torch.clamp(cand, min=0)
-    s = _rescore(q, csafe, vectors, scales, sq_norms, alpha)
-    # a dead bucket entry carries ADC score NEG_INF (its slot may be reused)
-    ok = (cand >= 0) & (cand_adc > NEG_INF / 2)
-    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
-    return _final_topk(s, cand, k)
+    cand = _scan_pq_contig(q_raw, probe, cents_unpad, buckets_slots, bucket_codes, codebooks,
+                           bucket_bias, adc_metric=adc_metric, residual=residual)
+    return _rerank(q, *cand, vectors, scales, sq_norms, alpha, k=k, rerank=rerank)
 
 
 def _ivf_probe_scan_contig(q, centroids, slice_cluster, slice_bias, buckets_slots,
                            bucket_vectors, bucket_scale, bucket_bias, sq_norms, alpha, *,
                            nprobe: int, k: int):
-    """Raw probe over the bucket-CONTIGUOUS corpus copy with K3
-    (bucket_probe_scores): one sequential [cap, D] block per (query,
-    probe). bucket_bias folds validity, l2 norms and any per-call slot
-    mask; sq_norms only selects the centroid-score correction."""
-    cap = buckets_slots.shape[1]
-    b = q.shape[0]
+    """Raw probe over the bucket-CONTIGUOUS corpus copy with K3; sq_norms
+    only selects the centroid-score correction."""
     probe = _select_probes(q, centroids, slice_cluster, slice_bias, sq_norms is not None, nprobe)
-    qf = (q * alpha).to(score_dtype(bucket_vectors.dtype)).contiguous()
-    s = bucket_probe_scores(qf, probe, bucket_vectors, bucket_bias, bucket_scale)
-    s = s.reshape(b, nprobe * cap)
-    slots = buckets_slots[probe].reshape(b, nprobe * cap)
-    return _final_topk(s, slots, k)
+    cand = _scan_contig(q, probe, buckets_slots, bucket_vectors, bucket_scale, bucket_bias, alpha)
+    return _final_topk(*cand, k)
 
 
 # --------------------------------------------------------------------------
@@ -1101,62 +1128,56 @@ class IVFVectorIndex:
 
     def _probe(self, q, k: int, slot_mask: torch.Tensor | None, nprobe: int | None):
         """(distances [B, k], slots [B, k]) from the probe: the queries'
-        preparation, the probe scan and selection enqueued on the device,
-        and the wait for their copy down, each a span."""
+        preparation, the probe enqueued on the device (its three stages
+        each a span inside the dispatch: `probes`, `scan`, `select`), and
+        the wait for the copy down, each a span."""
         c = self.corpus
         with span("vector_search.prep"):
-            qx = np.asarray(q, np.float32)
-            if qx.ndim == 1:
-                qx = qx[None, :]
-            qsq = torch.from_numpy(np.sum(qx * qx, axis=1)).to(self.device)
-            if self.metric == "cosine":
-                qx = qx / np.maximum(np.linalg.norm(qx, axis=1, keepdims=True), 1e-12)
-            if c.d_pad != qx.shape[1]:
-                qx = np.pad(qx, ((0, 0), (0, c.d_pad - qx.shape[1])))
-            qt = torch.from_numpy(np.ascontiguousarray(qx)).to(self.device)
+            qt, qsq, _ = prep_queries(c, self.metric, q)
 
         with span("vector_search.dispatch"):
-            valid = c.valid if slot_mask is None else c.valid & slot_mask
+            l2 = self.metric == "l2"
             alpha = D.metric_alpha(self.metric)
-            sqn = c.sq_norms if self.metric == "l2" else None
+            sqn = c.sq_norms if l2 else None
             # nprobe counts SLICES: the scan budget is ~nprobe*cap rows
             np_probe = min(int(nprobe or self.nprobe), self.centroids_exp.shape[0])
-            # PQ re-rank pool: the JAX package's recall-derived floor of 512
-            pq_rr = self.pq_rerank or max(self.rerank_factor * k, 51 * k, 512)
-            cents = (self.centroids, self._slice_cluster_dev)
-            if self.pq is not None and (self.bucket_codes is not None or self.codes is not None):
-                q_raw = qt[:, : c.dims]
-                adc = dict(nprobe=np_probe, k=k, rerank=pq_rr,
-                           adc_metric="dot" if self.metric == "dot" else "l2",
-                           residual=self.pq_residual)
-                cents_unpad = self.centroids_exp[:, : c.dims]
-                if self.bucket_codes is not None:
+            pq = self.pq is not None and (self.bucket_codes is not None or self.codes is not None)
+            with span("vector_search.probes"):
+                probe = _select_probes(qt, self.centroids, self._slice_cluster_dev,
+                                       self.slice_bias, l2, np_probe)
+            with span("vector_search.scan"):
+                valid = c.valid if slot_mask is None else c.valid & slot_mask
+                if pq:
+                    adc = dict(adc_metric="dot" if self.metric == "dot" else "l2",
+                               residual=self.pq_residual)
+                    q_raw, cents_unpad = qt[:, : c.dims], self.centroids_exp[:, : c.dims]
+                    if self.bucket_codes is not None:
+                        bias = (self.bucket_bias if slot_mask is None
+                                else _bucket_bias(self.buckets_slots, valid, c.sq_norms, l2=False))
+                        cand = _scan_pq_contig(q_raw, probe, cents_unpad, self.buckets_slots,
+                                               self.bucket_codes, self.pq.codebooks, bias, **adc)
+                    else:
+                        cand = _scan_pq_gather(q_raw, probe, cents_unpad, self.buckets_slots,
+                                               self.codes, self.pq.codebooks, valid, **adc)
+                elif self.bucket_vectors is not None:
                     bias = (self.bucket_bias if slot_mask is None
-                            else _bucket_bias(self.buckets_slots, valid, c.sq_norms, l2=False))
-                    scores, slots = _ivf_probe_scan_pq_contig(
-                        qt, q_raw, *cents, cents_unpad, self.slice_bias, self.buckets_slots,
-                        self.bucket_codes, self.pq.codebooks, c.vectors, c.scales, bias, sqn,
-                        alpha, **adc)
+                            else _bucket_bias(self.buckets_slots, valid, c.sq_norms, l2=l2))
+                    cand = _scan_contig(qt, probe, self.buckets_slots, self.bucket_vectors,
+                                        self.bucket_scales, bias, alpha)
                 else:
-                    scores, slots = _ivf_probe_scan_pq(
-                        qt, q_raw, *cents, cents_unpad, self.slice_bias, self.buckets_slots,
-                        self.codes, self.pq.codebooks, c.vectors, c.scales, valid, sqn, alpha,
-                        **adc)
-            elif self.bucket_vectors is not None:
-                bias = (self.bucket_bias if slot_mask is None
-                        else _bucket_bias(self.buckets_slots, valid, c.sq_norms,
-                                          l2=(self.metric == "l2")))
-                scores, slots = _ivf_probe_scan_contig(
-                    qt, *cents, self.slice_bias, self.buckets_slots, self.bucket_vectors,
-                    self.bucket_scales, bias, sqn, alpha, nprobe=np_probe, k=k)
-            else:
-                scores, slots = _ivf_probe_scan(
-                    qt, *cents, self.slice_bias, self.buckets_slots, c.vectors, c.scales, valid,
-                    sqn, alpha, nprobe=np_probe, k=k)
-            d_dev, s_dev = D.finalize_results(self.metric, scores, slots, qsq)
+                    cand = _scan_gather(qt, probe, self.buckets_slots, c.vectors, c.scales,
+                                        valid, sqn, alpha)
+            with span("vector_search.select"):
+                if pq:
+                    # the re-rank pool: the JAX package's recall-derived floor of 512
+                    pool = self.pq_rerank or max(self.rerank_factor * k, 51 * k, 512)
+                    scores, slots = _rerank(qt, *cand, c.vectors, c.scales, sqn, alpha,
+                                            k=k, rerank=pool)
+                else:
+                    scores, slots = _final_topk(*cand, k)
+                d_dev, s_dev = D.finalize_results(self.metric, scores, slots, qsq)
         with span("vector_search.wait"):
-            return (d_dev.cpu().numpy().astype(np.float32),
-                    s_dev.cpu().numpy().astype(np.int64))
+            return to_host(d_dev, s_dev)
 
     def search_arrays(self, q, k: int, slot_mask: torch.Tensor | None = None,
                       nprobe: int | None = None, mode: str = "auto"):
