@@ -70,7 +70,13 @@ imports nothing of JAX or tostore_tpu. Phases:
      launch; the host syncs of a raw and a PQ probe call at B = 8 under
      set_sync_debug_mode("warn") are printed (a finding). Recall@10
      against mode="exact" >= 0.95 raw / 0.85 PQ, no deleted pk back, and
-     shared pks' scores within the bf16 tolerance. Then K3 and K4 against
+     shared pks' scores within the bf16 tolerance. The raw index's CUDA
+     graphs (ops/graphs.py): one B = 1 key searched IVF_GRAPH_SEARCHES
+     times, each answer equal to the eager probe's bit for bit; the first
+     search eager, the second captures, each later one a replay that counts
+     one launch of K3, one of its pre-pass and two of select_topk, as an
+     eager search does; host ms of eager and replayed searches in turns (a
+     finding). Then K3 and K4 against
      their plain versions on the indexes' own buckets, codes, bias and
      probes, and the grouping pre-pass against its plain version on the
      same probes, exactly; at B = 8 and 64, the L2 flushed before each timed call, the
@@ -1037,7 +1043,7 @@ def phase_ivf_main_path(idxs, deleted, queries, T, IP):
     torch.cuda.synchronize()
     launches = {**T.LAUNCHES, **IP.LAUNCHES}
     print(f"phase6 launches on the IVF main path: {launches}", flush=True)
-    for key in [*IP.LAUNCHES, "select_topk"]:
+    for key in ["ivf_bucket_probe", "ivf_adc", "ivf_group_pairs", "select_topk"]:
         if launches[key] <= 0:
             raise AssertionError(f"kernel {key} was not launched on the IVF main path")
     for name in ("raw", "pq192"):  # a finding, not a condition
@@ -1073,6 +1079,69 @@ def phase_ivf_main_path(idxs, deleted, queries, T, IP):
         if recall < RECALL_MIN[name]:
             raise AssertionError(f"{name}: recall@{K} {recall} < {RECALL_MIN[name]}")
     return launches
+
+
+# ops/ivfprobe.py's counters of the probe's CUDA graphs: searches and keys, not kernels
+GRAPH_COUNTERS = ("ivf_probe_graph", "ivf_probe_graph_capture")
+IVF_GRAPH_SEARCHES = 6  # one key: eager, capture, then replays
+IVF_GRAPH_TIMED = 200  # B = 1 searches a side, in turns
+
+
+def phase_ivf_graph(idx, queries, IP, T):
+    """Phase 6a (graphs): the probe's stages as CUDA graphs on the raw 1M
+    index, held to the eager probe bit for bit, with the launches each
+    search counts."""
+    from tostore_tpu_torch.vector import ivf as ivf_mod
+
+    rows = queries[64]
+    eligible = ivf_mod._probe_graph_eligible
+
+    def eager(q):
+        ivf_mod._probe_graph_eligible = lambda *a: False
+        try:
+            return idx.search_arrays(q, K, mode="probe")
+        finally:
+            ivf_mod._probe_graph_eligible = eligible
+
+    keys = (*GRAPH_COUNTERS, "ivf_bucket_probe", "ivf_group_pairs", "select_topk")
+
+    def counts():
+        return {key: {**T.LAUNCHES, **IP.LAUNCHES}[key] for key in keys}
+
+    idx._probe_graphs.clear()
+    per = []
+    for i in range(IVF_GRAPH_SEARCHES):
+        q = rows[i: i + 1]
+        want = eager(q)
+        before = counts()
+        got = idx.search_arrays(q, K, mode="probe")
+        per.append({key: v - before[key] for key, v in counts().items()})
+        if not (np.array_equal(got[1], want[1])
+                and np.array_equal(got[0].view(np.uint32), want[0].view(np.uint32))):
+            raise AssertionError(f"graph search {i}: answers differ from the eager probe's")
+    print(f"phase6 graphs: launches of {IVF_GRAPH_SEARCHES} searches of one B = 1 key "
+          f"(eager, capture, replays): {per}", flush=True)
+    one = {"ivf_bucket_probe": 1, "ivf_group_pairs": 1, "select_topk": 2}
+    if per[0] != {"ivf_probe_graph": 0, "ivf_probe_graph_capture": 0, **one}:
+        raise AssertionError(f"the key's first search did not run eagerly: {per[0]}")
+    # the capture search runs each stage once eagerly on the capture stream, then replays it
+    if per[1] != {"ivf_probe_graph": 1, "ivf_probe_graph_capture": 1,
+                  **{key: 2 * n for key, n in one.items()}}:
+        raise AssertionError(f"the key's second search did not capture: {per[1]}")
+    for i, d in enumerate(per[2:], 2):
+        if d != {"ivf_probe_graph": 1, "ivf_probe_graph_capture": 0, **one}:
+            raise AssertionError(f"search {i} of the key did not replay once: {d}")
+    ms = {"eager": [], "replay": []}
+    for i in range(IVF_GRAPH_TIMED):
+        q = rows[i % 64: i % 64 + 1]
+        for side in ("eager", "replay") if i % 2 else ("replay", "eager"):
+            t0 = time.perf_counter()
+            eager(q) if side == "eager" else idx.search_arrays(q, K, mode="probe")
+            ms[side].append((time.perf_counter() - t0) * 1e3)
+    print("phase6 graphs: search_arrays B = 1 probe, host ms (median, p90 of "
+          f"{IVF_GRAPH_TIMED}): " + "; ".join(
+              f"{side} {np.median(v):.4f}, {np.percentile(v, 90):.4f}"
+              for side, v in ms.items()), flush=True)
 
 
 def _bias_shift(idx):
@@ -3387,7 +3456,7 @@ def phase_ties(dev, ivf_idxs, T, IP, errs, tag):
     launches = {**T.LAUNCHES, **{k: v for k, v in IP.LAUNCHES.items()}}
     print(f"phase13b launches on the ties path: {launches} {tag}", flush=True)
     for key, n in launches.items():
-        if n <= 0:
+        if n <= 0 and key not in GRAPH_COUNTERS:
             raise AssertionError(f"phase13b: kernel {key} was not launched on the ties path")
 
     # --- 13c: each route against its plain version, hits and order
@@ -3570,6 +3639,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ivf_idxs, ivf_deleted, ivf_queries, build_s = build_ivf_indexes(dev)
     ivf_launches = phase_ivf_main_path(ivf_idxs, ivf_deleted, ivf_queries, T, IP)
+    phase_ivf_graph(ivf_idxs["raw"], ivf_queries, IP, T)
     ivf_times, ivf_bounds = phase_ivf_kernels_main(ivf_idxs, ivf_queries, errs, IP)
     phase_ivf_crossover(ivf_idxs, ivf_queries)
     if "--profile" in sys.argv[1:]:

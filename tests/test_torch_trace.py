@@ -7,7 +7,8 @@ entered while no profiler records; the engine's `vector_search` timer
 around the whole method.
 
 The cases on the card (marker `cuda`) also place the search's host syncs
-in the stages that wait for the device. This file imports no JAX, so it
+in the stages that wait for the device, and hold a probe search that
+replays the stages' CUDA graphs to the same spans. This file imports no JAX, so it
 runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_trace.py
@@ -21,6 +22,7 @@ import pytest
 import torch
 from torch.autograd import profiler as autograd_profiler
 
+import tostore_tpu_torch.ops.ivfprobe as tivf
 from tostore_tpu_torch import QueryCondition, ToStoreTPU
 from tostore_tpu_torch.models.schema import (
     DataType,
@@ -246,6 +248,35 @@ def test_gate_follows_the_profiler():
         assert isinstance(spans.span("x"), autograd_profiler.record_function)
     assert autograd_profiler._is_profiler_enabled is False
     assert spans.span("x") is spans._OFF
+
+
+@pytest.mark.cuda
+def test_replayed_ivf_probe_search_stages_nest_in_order(tmp_path):
+    """On the card the third probe search of one key replays the stages'
+    CUDA graphs (ops/graphs.py): traced, its three probe spans still nest
+    in order in `dispatch` with nothing inside them, and its host syncs
+    are the two copies up (prep) and the two down (wait)."""
+    db, x = _open("ivf", "cuda", "raw")
+    try:
+        for i in (7, 8):  # the key's first search runs eagerly, the second captures
+            db.vector_search("docs", "emb", x[i], top_k=10, mode="probe")
+        before = tivf.LAUNCHES["ivf_probe_graph"]
+        roots, calls = _trace(db, tmp_path, [{"q": x[9], "top_k": 10, "mode": "probe"}])
+        assert tivf.LAUNCHES["ivf_probe_graph"] == before + 1
+    finally:
+        db.close()
+    (root,) = roots
+    assert _stages(root) == STAGES
+    assert [_children(root, s) for s in STAGES] == [[], [], PROBE_STAGES, [], [], []]
+    (dispatch,) = [c for c in root.children if c.stage == "dispatch"]
+    assert all(c.children == [] for c in dispatch.children)
+    times = [(c.t0, c.t1) for c in dispatch.children]
+    assert all(a1 <= b0 for (_, a1), (b0, _) in zip(times, times[1:]))
+    assert dispatch.t0 <= times[0][0] and times[-1][1] <= dispatch.t1
+    syncs = [float(e["ts"]) for e in calls if e["name"] in SYNC_CALLS
+             and root.t0 <= float(e["ts"]) <= root.t1]
+    where = {c.stage: sum(c.t0 <= t <= c.t1 for t in syncs) for c in root.children}
+    assert where["prep"] == 2 and where["wait"] == 2 and len(syncs) == 4, where
 
 
 @pytest.mark.cuda

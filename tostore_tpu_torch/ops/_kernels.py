@@ -13,6 +13,7 @@ Nothing here runs at import time; importing this module needs no CUDA.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -154,14 +155,40 @@ def library() -> SimpleNamespace:
 
 
 _count_lock = threading.Lock()
+_recorder = threading.local()
 
 
 def count(launches: dict, name: str, n: int = 1):
     """Add to a wrapper's launch counter. `d[k] += n` is a read and a
     write: searches from several threads (the engine releases its lock
-    across a search) would lose counts without the lock."""
+    across a search) would lose counts without the lock. Inside
+    `recording()` the count goes to the recording instead."""
+    rec = getattr(_recorder, "launches", None)
+    if rec is not None:
+        rec.append((launches, name, n))
+        return
     with _count_lock:
         launches[name] += n
+
+
+@contextlib.contextmanager
+def recording():
+    """This thread's launch counts, as (counters, name, n), go to the
+    yielded list instead of the counters: a CUDA graph's capture launches
+    nothing, and each replay adds what it recorded (`add`)."""
+    rec = []
+    _recorder.launches = rec
+    try:
+        yield rec
+    finally:
+        _recorder.launches = None
+
+
+def add(recorded):
+    """Add recorded launch counts to their counters."""
+    with _count_lock:
+        for launches, name, n in recorded:
+            launches[name] += n
 
 
 def check(name: str, err: int):

@@ -44,9 +44,13 @@ ADC_SMEM_BYTES = 16 * 1024
 # sorting its own slice, so a bucket may be read once by each.
 RUN_MAX = 4096
 
-# Launches by kernel, counted where the wrapper launches it; every K3 / K4
-# launch runs the grouping pre-pass (`ivf_group_pairs`) in the same C call.
-LAUNCHES = {"ivf_bucket_probe": 0, "ivf_adc": 0, "ivf_group_pairs": 0}
+# Launches by kernel, counted where the wrapper launches it (or, for a CUDA
+# graph, at each replay); every K3 / K4 launch runs the grouping pre-pass
+# (`ivf_group_pairs`) in the same C call. `ivf_probe_graph` counts the probe
+# searches that ran as CUDA graphs (vector/ivf.py), `ivf_probe_graph_capture`
+# the keys captured.
+LAUNCHES = {"ivf_bucket_probe": 0, "ivf_adc": 0, "ivf_group_pairs": 0, "ivf_probe_graph": 0,
+            "ivf_probe_graph_capture": 0}
 
 _VEC_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 

@@ -31,7 +31,9 @@ import numpy as np
 import torch
 
 from ..models.results import VectorSearchResult
+from ..ops import _kernels, graphs
 from ..ops import distance as D
+from ..ops.ivfprobe import LAUNCHES as PROBE_LAUNCHES
 from ..ops.ivfprobe import adc_bucket_scores, adc_kernel_supported, bucket_probe_scores
 from ..ops.runtime import NEG_INF, f32_dot, round_up, score_dtype
 from ..ops.topk import MISS_FLOOR, top_k_first
@@ -96,12 +98,26 @@ def _final_topk(s, slots, k: int):
     return ts, torch.gather(slots, 1, ti)
 
 
+# The most queries a search may have for its probe to run as CUDA graphs.
+GRAPH_MAX_B = 32
+
+
+def _probe_graph_eligible(device: torch.device, raw_contig: bool, masked: bool, b: int) -> bool:
+    """Whether a probe search runs its stages as CUDA graphs: on a CUDA
+    device, on the raw bucket-contiguous route (K3), with no per-call slot
+    mask, for at most GRAPH_MAX_B queries. The PQ and gather routes, masked
+    searches and larger batches run eagerly."""
+    return device.type == "cuda" and raw_contig and not masked and b <= GRAPH_MAX_B
+
+
 # Each probe route is three stages: probe selection (`_select_probes`), a
 # scan that scores every candidate of the probed slices (probes in probe
 # order, each slice in row order), and a selection over those candidates
 # (`_final_topk`, or `_rerank` after ADC). `IVFVectorIndex._probe` runs
-# them as its `probes`, `scan` and `select` spans; the `_ivf_probe_scan*`
-# functions run them back to back for the sharded index and the scripts.
+# them as its `probes`, `scan` and `select` spans (on the raw contiguous
+# route, where `_probe_graph_eligible` holds, as CUDA graphs); the
+# `_ivf_probe_scan*` functions run them back to back for the sharded index
+# and the scripts.
 
 
 def _scan_contig(q, probe, buckets_slots, bucket_vectors, bucket_scale, bucket_bias, alpha):
@@ -444,6 +460,7 @@ class IVFVectorIndex:
         self.bucket_bias: torch.Tensor | None = None  # [C_exp, cap] f32
         self.bucket_scales: torch.Tensor | None = None  # [C_exp, cap] f32 (int8)
         self.CONTIG_MAX_BYTES = 6 << 30
+        self._probe_graphs = graphs.GraphCache()  # the probe's CUDA graphs by key
 
     # --- helpers ------------------------------------------------------------
 
@@ -708,6 +725,7 @@ class IVFVectorIndex:
             return False
         for attr in self._LAYOUT_ATTRS:
             setattr(self, attr, getattr(shadow, attr))
+        self._probe_graphs.clear()
         self._note_mutation()
         return True
 
@@ -796,6 +814,7 @@ class IVFVectorIndex:
         c.deleted_count = 0
         for attr in self._LAYOUT_ATTRS:
             setattr(self, attr, getattr(shadow, attr))
+        self._probe_graphs.clear()
         self._note_mutation()
         return True
 
@@ -850,6 +869,7 @@ class IVFVectorIndex:
         """Sliced build: one assignment pass (chunked product + argmax), a
         [C] counts readback to size the slices on the host, one placement
         step. Every row lands in its first-choice cluster."""
+        self._probe_graphs.clear()  # the tensors the graphs read are replaced below
         c = self.corpus
         live = self._live_slots()
         num_c = self.centroids.shape[0]
@@ -941,6 +961,7 @@ class IVFVectorIndex:
         self.bucket_codes = gathered.permute(0, 2, 1).contiguous()
 
     def _refresh_bucket_vectors(self):
+        self._probe_graphs.clear()  # the tensors the graphs read are replaced below
         c = self.corpus
         num_c, cap = self.buckets_slots.shape
         if self.pq is not None or self.pq_subspaces:
@@ -1126,58 +1147,93 @@ class IVFVectorIndex:
             return tmp, (mode if mode in ("exact", "fast") else "auto")
         return None
 
+    def _probe_graph_tensors(self) -> tuple:
+        """The index's tensors that the raw contiguous probe's stages read,
+        whose identities key its CUDA graphs."""
+        return (self.centroids, self._slice_cluster_dev, self.slice_bias, self.buckets_slots,
+                self.bucket_vectors, self.bucket_scales, self.bucket_bias)
+
     def _probe(self, q, k: int, slot_mask: torch.Tensor | None, nprobe: int | None):
         """(distances [B, k], slots [B, k]) from the probe: the queries'
         preparation, the probe enqueued on the device (its three stages
         each a span inside the dispatch: `probes`, `scan`, `select`), and
-        the wait for the copy down, each a span."""
-        c = self.corpus
+        the wait for the copy down, each a span. Where
+        `_probe_graph_eligible` holds, the stages are CUDA graphs
+        (ops/graphs.py) replayed from static buffers, keyed by the search's
+        shape and the index's tensors; else, and for a key's first search
+        or a key another thread is replaying, they run eagerly."""
         with span("vector_search.prep"):
-            qt, qsq, _ = prep_queries(c, self.metric, q)
+            qt, qsq, _ = prep_queries(self.corpus, self.metric, q)
 
-        with span("vector_search.dispatch"):
-            l2 = self.metric == "l2"
-            alpha = D.metric_alpha(self.metric)
-            sqn = c.sq_norms if l2 else None
-            # nprobe counts SLICES: the scan budget is ~nprobe*cap rows
-            np_probe = min(int(nprobe or self.nprobe), self.centroids_exp.shape[0])
-            pq = self.pq is not None and (self.bucket_codes is not None or self.codes is not None)
-            with span("vector_search.probes"):
-                probe = _select_probes(qt, self.centroids, self._slice_cluster_dev,
-                                       self.slice_bias, l2, np_probe)
-            with span("vector_search.scan"):
-                valid = c.valid if slot_mask is None else c.valid & slot_mask
-                if pq:
-                    adc = dict(adc_metric="dot" if self.metric == "dot" else "l2",
-                               residual=self.pq_residual)
-                    q_raw, cents_unpad = qt[:, : c.dims], self.centroids_exp[:, : c.dims]
-                    if self.bucket_codes is not None:
-                        bias = (self.bucket_bias if slot_mask is None
-                                else _bucket_bias(self.buckets_slots, valid, c.sq_norms, l2=False))
-                        cand = _scan_pq_contig(q_raw, probe, cents_unpad, self.buckets_slots,
-                                               self.bucket_codes, self.pq.codebooks, bias, **adc)
-                    else:
-                        cand = _scan_pq_gather(q_raw, probe, cents_unpad, self.buckets_slots,
-                                               self.codes, self.pq.codebooks, valid, **adc)
-                elif self.bucket_vectors is not None:
+        graph = None
+        try:
+            with span("vector_search.dispatch"):
+                # nprobe counts SLICES: the scan budget is ~nprobe*cap rows
+                np_probe = min(int(nprobe or self.nprobe), self.centroids_exp.shape[0])
+                pq = self.pq is not None and (self.bucket_codes is not None
+                                              or self.codes is not None)
+                if _probe_graph_eligible(qt.device, not pq and self.bucket_vectors is not None,
+                                         slot_mask is not None, qt.shape[0]):
+                    graph = self._probe_graphs.acquire((qt.shape[0], k, np_probe, self.metric),
+                                                       self._probe_graph_tensors())
+                run = graphs.eager
+                if graph is not None:
+                    capturing = not graph.captured
+                    qt, qsq = graph.load(qt, qsq)
+                    run = graph.stage
+                d_dev, s_dev = self._probe_stages(qt, qsq, k, slot_mask, np_probe, pq, run)
+                if graph is not None:  # counted once the stages ran
+                    if capturing:
+                        _kernels.count(PROBE_LAUNCHES, "ivf_probe_graph_capture")
+                    _kernels.count(PROBE_LAUNCHES, "ivf_probe_graph")
+            with span("vector_search.wait"):
+                return to_host(d_dev, s_dev)
+        finally:
+            if graph is not None:
+                graph.lock.release()
+
+    def _probe_stages(self, qt, qsq, k: int, slot_mask, np_probe: int, pq: bool, run):
+        """The probe's three stages, each a span, enqueued on the device:
+        (distances, slots) there. `run(i, fn)` runs the device work of stage
+        i of the raw contiguous route: `graphs.eager`, or a key's
+        `StageGraphs.stage`, which captures and replays it."""
+        c = self.corpus
+        l2 = self.metric == "l2"
+        alpha = D.metric_alpha(self.metric)
+        sqn = c.sq_norms if l2 else None
+        with span("vector_search.probes"):
+            probe = run(0, lambda: _select_probes(qt, self.centroids, self._slice_cluster_dev,
+                                                  self.slice_bias, l2, np_probe))
+        with span("vector_search.scan"):
+            valid = c.valid if slot_mask is None else c.valid & slot_mask
+            if pq:
+                adc = dict(adc_metric="dot" if self.metric == "dot" else "l2",
+                           residual=self.pq_residual)
+                q_raw, cents_unpad = qt[:, : c.dims], self.centroids_exp[:, : c.dims]
+                if self.bucket_codes is not None:
                     bias = (self.bucket_bias if slot_mask is None
-                            else _bucket_bias(self.buckets_slots, valid, c.sq_norms, l2=l2))
-                    cand = _scan_contig(qt, probe, self.buckets_slots, self.bucket_vectors,
-                                        self.bucket_scales, bias, alpha)
+                            else _bucket_bias(self.buckets_slots, valid, c.sq_norms, l2=False))
+                    cand = _scan_pq_contig(q_raw, probe, cents_unpad, self.buckets_slots,
+                                           self.bucket_codes, self.pq.codebooks, bias, **adc)
                 else:
-                    cand = _scan_gather(qt, probe, self.buckets_slots, c.vectors, c.scales,
-                                        valid, sqn, alpha)
-            with span("vector_search.select"):
-                if pq:
-                    # the re-rank pool: the JAX package's recall-derived floor of 512
-                    pool = self.pq_rerank or max(self.rerank_factor * k, 51 * k, 512)
-                    scores, slots = _rerank(qt, *cand, c.vectors, c.scales, sqn, alpha,
-                                            k=k, rerank=pool)
-                else:
-                    scores, slots = _final_topk(*cand, k)
-                d_dev, s_dev = D.finalize_results(self.metric, scores, slots, qsq)
-        with span("vector_search.wait"):
-            return to_host(d_dev, s_dev)
+                    cand = _scan_pq_gather(q_raw, probe, cents_unpad, self.buckets_slots,
+                                           self.codes, self.pq.codebooks, valid, **adc)
+            elif self.bucket_vectors is not None:
+                bias = (self.bucket_bias if slot_mask is None
+                        else _bucket_bias(self.buckets_slots, valid, c.sq_norms, l2=l2))
+                cand = run(1, lambda: _scan_contig(qt, probe, self.buckets_slots,
+                                                   self.bucket_vectors, self.bucket_scales,
+                                                   bias, alpha))
+            else:
+                cand = _scan_gather(qt, probe, self.buckets_slots, c.vectors, c.scales,
+                                    valid, sqn, alpha)
+        with span("vector_search.select"):
+            if pq:
+                # the re-rank pool: the JAX package's recall-derived floor of 512
+                pool = self.pq_rerank or max(self.rerank_factor * k, 51 * k, 512)
+                top = _rerank(qt, *cand, c.vectors, c.scales, sqn, alpha, k=k, rerank=pool)
+                return D.finalize_results(self.metric, *top, qsq)
+            return run(2, lambda: D.finalize_results(self.metric, *_final_topk(*cand, k), qsq))
 
     def search_arrays(self, q, k: int, slot_mask: torch.Tensor | None = None,
                       nprobe: int | None = None, mode: str = "auto"):
