@@ -335,18 +335,18 @@ def _slices(idx, nprobe):
     return min(nprobe, idx.centroids_exp.shape[0])
 
 
-def _probe_contig(idx, nprobe, k, alpha=2.0):
-    """The raw bucket-contiguous probe (K3) over a trained index's arrays."""
-    from tostore_tpu_torch.vector.ivf import _ivf_probe_scan_contig
+def _probe_contig(idx, nprobe, k, rerank=0, **route):
+    """The probe over a trained index's arrays, without the search's host
+    stages: raw bucket-contiguous (K3) on a raw index with the contiguous
+    copy; `route` replaces tensors the probe reads (`bucket_vectors=None`:
+    the row gather); `rerank`: a PQ index's re-rank pool."""
+    from tostore_tpu_torch.vector.ivf import _ivf_probe
 
-    c = idx.corpus
+    t = idx._probe_index()._replace(**route)
     nprobe = _slices(idx, nprobe)
 
     def probe(qq):
-        return _ivf_probe_scan_contig(
-            qq, idx.centroids, idx._slice_cluster_dev, idx.slice_bias, idx.buckets_slots,
-            idx.bucket_vectors, idx.bucket_scales, idx.bucket_bias, c.sq_norms, alpha,
-            nprobe=nprobe, k=k)
+        return _ivf_probe(qq, t, k=k, nprobe=nprobe, rerank=rerank)
 
     return probe
 
@@ -424,7 +424,6 @@ def config8_pq(device="cuda", n=500_000, d=768, modes=2000, clusters=1024, nprob
     from tostore_tpu_torch.ops import distance as D
     from tostore_tpu_torch.ops.runtime import round_up
     from tostore_tpu_torch.ops.topk import flat_search
-    from tostore_tpu_torch.vector.ivf import _ivf_probe_scan, _ivf_probe_scan_pq_contig
 
     dev = require_device(device)
     n = round_up(n, 4096)
@@ -439,18 +438,8 @@ def config8_pq(device="cuda", n=500_000, d=768, modes=2000, clusters=1024, nprob
         sync()
         return idx
 
-    def pq_probe(idx, pool):
-        c = idx.corpus
-        np_ = _slices(idx, nprobe)
-
-        def probe(qq):
-            return _ivf_probe_scan_pq_contig(
-                qq, qq[:, :d], idx.centroids, idx._slice_cluster_dev,
-                idx.centroids_exp[:, :d], idx.slice_bias, idx.buckets_slots, idx.bucket_codes,
-                idx.pq.codebooks, c.vectors, c.scales, idx.bucket_bias, c.sq_norms, 2.0,
-                nprobe=np_, k=k, rerank=pool, adc_metric="l2", residual=idx.pq_residual)
-
-        return probe
+    def pq_probe(idx, pool):  # ADC over the contiguous codes (K4) and the exact re-rank
+        return _probe_contig(idx, nprobe, k, rerank=pool)
 
     def upload(qn):  # [B, d] host queries -> [B, d_pad] f32 on the card
         return torch.from_numpy(np.pad(qn, ((0, 0), (0, c.d_pad - d)))).to(dev)
@@ -494,12 +483,7 @@ def config8_pq(device="cuda", n=500_000, d=768, modes=2000, clusters=1024, nprob
     craw = idx_raw.corpus
     qj64 = upload(_near_queries(c, rng, n, b_wide, d))
     probe_raw = _probe_contig(idx_raw, nprobe, k)
-
-    def probe_raw_gather(qq):
-        return _ivf_probe_scan(
-            qq, idx_raw.centroids, idx_raw._slice_cluster_dev, idx_raw.slice_bias,
-            idx_raw.buckets_slots, craw.vectors, craw.scales, craw.valid, craw.sq_norms, 2.0,
-            nprobe=_slices(idx_raw, nprobe), k=k)
+    probe_raw_gather = _probe_contig(idx_raw, nprobe, k, bucket_vectors=None)
 
     out_b = {}
     for name, fn, qq in (
@@ -558,11 +542,8 @@ def config10_mesh_probe(device="cuda", n=500_000, d=768, clusters=1024, nprobe=1
     from tostore_tpu_torch import IVFVectorIndex
     from tostore_tpu_torch.ops.runtime import round_up
     from tostore_tpu_torch.parallel import make_mesh
-    from tostore_tpu_torch.parallel.sharded_ivf import (
-        ShardedIVFIndex,
-        _sharded_ivf_probe,
-        _sharded_ivf_probe_contig,
-    )
+    from tostore_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex, _run_probe
+    from tostore_tpu_torch.vector.ivf import _ivf_probe
 
     dev = require_device(device)
     cell = "cuda:0" if dev.type == "cuda" and dev.index is None else str(dev)
@@ -588,20 +569,17 @@ def config10_mesh_probe(device="cuda", n=500_000, d=768, clusters=1024, nprobe=1
 
     q = normal(SEED + 1, (b, sidx.corpus.d_pad), torch.device(cell))
     sd_probe = _probe_contig(sidx, nprobe, k)
-    cents = (midx.centroids, midx._slice_cluster_dev)
     nprobe = _slices(midx, nprobe)
 
-    def mesh_probe(qq):
-        return _sharded_ivf_probe_contig(
-            qq, *cents, midx.slice_bias, midx.buckets, midx.bucket_vectors, None,
-            midx.bucket_bias, 2.0, nprobe=nprobe, k=k, l2=True, rps=midx._rows_per_shard(),
-            mesh=mesh)
+    def mesh_probe(qq, **route):  # every cell's probe and the merge, no host stages
+        def body(dpi, s, dev, qb):
+            t = midx._shard_probe_index(dpi, s, dev)._replace(**route)
+            return _ivf_probe(qb, t, k=k, nprobe=nprobe)
+
+        return _run_probe(qq, k, midx._rows_per_shard(), mesh, body)
 
     def mesh_gather(qq):
-        return _sharded_ivf_probe(
-            qq, *cents, midx.slice_bias, midx.buckets, midx.vectors, None, midx.valid,
-            midx.sq_norms, 2.0, nprobe=nprobe, k=k, l2=True, rps=midx._rows_per_shard(),
-            mesh=mesh)
+        return mesh_probe(qq, bucket_vectors=None)
 
     per_sd = timeit(sd_probe, q, reps=20)
     per_m = timeit(mesh_probe, q, reps=20)

@@ -1314,12 +1314,9 @@ def phase_ivf_crossover(idxs, queries):
     marked, not asserted: as the slower one where it loses by more than
     HOST_SPREAD, the spread of host-clock calls between runs, and as within
     the spread otherwise. Returns {(index, B): (probe ms, flat ms, route)}."""
-    from tostore_tpu_torch import FlatVectorIndex
-
     out = {}
     for name, idx in idxs.items():
-        flat = FlatVectorIndex.__new__(FlatVectorIndex)
-        flat.metric, flat.corpus = idx.metric, idx.corpus
+        flat = idx._flat  # the index's flat view: the exact scan of its corpus
         row = []
         for b in CROSSOVER_B:
             q = queries[b]

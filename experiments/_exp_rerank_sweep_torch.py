@@ -29,7 +29,7 @@ def main():
     from tostore_tpu_torch.ops.ivfprobe import LAUNCHES
     from tostore_tpu_torch.ops.runtime import round_up
     from tostore_tpu_torch.ops.topk import flat_search
-    from tostore_tpu_torch.vector.ivf import _ivf_probe_scan_pq_contig
+    from tostore_tpu_torch.vector.ivf import _ivf_probe
 
     dev = require_device("cuda")
     print(device_info("cuda"), flush=True)
@@ -66,13 +66,8 @@ def main():
                 flat_search(qj[lo:lo + 64], c.vectors, bias, k=K, alpha=2.0)[1].cpu().numpy()
                 for lo in range(0, NQ, 64)])
         for pool in POOLS:
-            def probe(qq, pool=pool):
-                return _ivf_probe_scan_pq_contig(
-                    qq, qq[:, :D], idx.centroids, idx._slice_cluster_dev,
-                    idx.centroids_exp[:, :D], idx.slice_bias, idx.buckets_slots,
-                    idx.bucket_codes, idx.pq.codebooks, c.vectors, c.scales, idx.bucket_bias,
-                    c.sq_norms, 2.0, nprobe=NPROBE, k=K, rerank=pool, adc_metric="l2",
-                    residual=idx.pq_residual)
+            def probe(qq, pool=pool):  # K4 over the contiguous codes, then the re-rank
+                return _ivf_probe(qq, idx._probe_index(), k=K, nprobe=NPROBE, rerank=pool)
 
             slots = np.concatenate([probe(qj[lo:lo + 64])[1].cpu().numpy()
                                     for lo in range(0, NQ, 64)])

@@ -20,6 +20,7 @@ import torch
 from tostore_tpu.vector import FlatVectorIndex as JFlat
 from tostore_tpu_torch import FlatVectorIndex as TFlat
 from tostore_tpu_torch import VectorSearchResult, convert
+from tostore_tpu_torch.vector import flat as F
 from torch_parity import TOL, assert_topk_match
 
 torch.set_num_threads(1)
@@ -313,7 +314,7 @@ def test_results_stage_matches_reference_loop(metric, case):
     for c in (t_idx.corpus, j_idx.corpus):
         c._slot_pks, c.capacity = table.copy(), cap
     q = np.ones(8, np.float32)
-    with mock.patch.object(t_idx, "_scan", return_value=(dist[None], slots[None])):
+    with mock.patch.object(F, "search_host", return_value=(dist[None], slots[None])):
         got = t_idx.search(q, top_k, threshold)
     with mock.patch.object(j_idx, "search_arrays", return_value=(
             dist[None], slots[None], j_idx.corpus.pks_for_slots(slots[None]))):
@@ -390,8 +391,6 @@ def _prepared_by(index, q, monkeypatch, module):
 @pytest.mark.parametrize("metric", ["cosine", "l2", "dot"])
 def test_flat_and_ivf_prepare_queries_alike(metric, single, monkeypatch):
     from tostore_tpu_torch import IVFVectorIndex
-    from tostore_tpu_torch.vector import flat as F
-    from tostore_tpu_torch.vector import ivf as V
 
     rng = np.random.default_rng(17)
     x = rng.standard_normal((600, 40)).astype(np.float32) * 3
@@ -403,7 +402,7 @@ def test_flat_and_ivf_prepare_queries_alike(metric, single, monkeypatch):
                          device="cpu")
     ivf.upsert(list(range(600)), x)
     fq, fsq, fsingle = _prepared_by(flat, q, monkeypatch, F)
-    iq, isq, isingle = _prepared_by(ivf, q, monkeypatch, V)
+    iq, isq, isingle = _prepared_by(ivf, q, monkeypatch, F)  # the one skeleton's call
     assert torch.equal(fq, iq) and torch.equal(fsq, isq) and fsingle == isingle == single
     # the queries as the flat scan prepared them before the helper
     q2 = np.atleast_2d(q).astype(np.float32)

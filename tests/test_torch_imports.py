@@ -197,10 +197,7 @@ def test_parallel_exports_the_reference_names():
                                   "state_vectors_f32", "ShardedFlatIndex")),
                        (sharded_ivf, ("_sharded_ivf_assign", "_sharded_ivf_place",
                                       "_sharded_bucket_bias", "_sharded_bucket_codes",
-                                      "_probe_select", "_merge_local_topk",
-                                      "_sharded_ivf_probe_contig", "_sharded_ivf_probe_pq_contig",
-                                      "_sharded_ivf_probe", "_sharded_ivf_probe_pq",
-                                      "ShardedIVFIndex"))):
+                                      "_merge_local_topk", "ShardedIVFIndex"))):
         assert not [n for n in names if not hasattr(mod, n)], mod.__name__
 
 

@@ -8,7 +8,9 @@ after a retrain, a compaction, an upsert that retrains and a slice
 growth), the old layout freed wherever the index replaces it, the
 counters moving only once a search's stages ran, the cache's locking,
 staleness and eviction (recorded keys least recently used first, captured
-ones never), the launch recording a replay adds, and no graph counter
+ones never), the launch recording a replay adds, the `GraphCache.stages`
+call a search takes its entry through (eager without an entry, the lock
+released on every path, the capture reported once), and no graph counter
 moving on the CPU.
 
 On the card (marker `cuda`): replayed answers equal the eager probe's
@@ -26,6 +28,7 @@ import gc
 import sys
 import threading
 import weakref
+from contextlib import nullcontext
 
 import numpy as np
 import pytest
@@ -33,6 +36,7 @@ import torch
 
 import tostore_tpu_torch.ops.ivfprobe as tivf
 import tostore_tpu_torch.ops.topk as ttopk
+import tostore_tpu_torch.vector.flat as flat_mod
 import tostore_tpu_torch.vector.ivf as ivf_mod
 from tostore_tpu_torch import IVFVectorIndex
 from tostore_tpu_torch.ops import _kernels, graphs
@@ -94,8 +98,8 @@ def test_only_the_raw_contiguous_route_is_a_graph_route(route):
     if route == "gather":
         idx.CONTIG_MAX_BYTES = 0
         idx._refresh_bucket_vectors()
-    pq = idx.pq is not None and (idx.bucket_codes is not None or idx.codes is not None)
-    assert (not pq and idx.bucket_vectors is not None) is (route == "raw")
+    t = idx._probe_index()
+    assert (t.codebooks is None and t.bucket_vectors is not None) is (route == "raw")
 
 
 def test_key_stable_without_mutation_and_under_in_place_writes():
@@ -217,6 +221,8 @@ def test_graph_counters_move_once_the_stages_ran(monkeypatch, captures):
             idx.search_arrays(x[2:4], K, mode="probe")
         idx.search_arrays(x[4:6], K, mode="probe")  # the broken key: eager
         assert _graph_counts() == before
+    # the search skeleton released the entry after each search, a failed one too
+    assert not any(e.lock.locked() for e in idx._probe_graphs._entries.values())
 
 
 # --------------------------------------------------------------------------
@@ -341,6 +347,103 @@ def test_a_failed_capture_breaks_the_entry(monkeypatch):
     entry.lock.release()
     assert entry.broken
     assert cache.acquire("k", held) is None and not entry.lock.locked()
+
+
+def _stage_search(cache, key, held, fn=lambda q: q * 2):
+    """One search's single stage through `GraphCache.stages`: (its
+    `Stages`, the stage's output)."""
+    g = cache.stages(key, held, torch.ones(3))
+    try:
+        (q,) = g.inputs
+        return g, g.run(0, lambda: fn(q))
+    finally:
+        g.release()
+
+
+@pytest.mark.parametrize("why", ["no_key", "first_search", "held", "broken"])
+def test_stages_run_eagerly_without_an_entry(why):
+    """A None key, a key's first search, an entry another search holds and
+    a broken entry run eagerly on the search's own inputs, and leave the
+    entry's lock as they found it."""
+    cache, held = graphs.GraphCache(), (torch.zeros(1),)
+    entry = None
+    if why in ("held", "broken"):
+        cache.acquire("k", held)
+        entry = cache.acquire("k", held)
+        if why == "broken":
+            entry.broken = True
+            entry.lock.release()
+    q = torch.ones(3)
+    g = cache.stages(None if why == "no_key" else "k", held, q)
+    assert g.run is graphs.eager and g.inputs[0] is q
+    assert not g.graphed and not g.captures
+    g.release()
+    assert len(cache) == (0 if why == "no_key" else 1)
+    if entry is not None:
+        assert entry.lock.locked() is (why == "held")
+
+
+@pytest.mark.parametrize("fails", ["none", "load", "capture", "block"])
+def test_stages_release_the_entry_on_every_path(monkeypatch, fails):
+    """The entry's lock is released by `release()` in a `finally`, as the
+    search skeleton does, also where the load of the static inputs raises
+    (`stages` itself releases it), a stage's capture raises (the entry is
+    then broken: the key's later searches run eagerly) or the search
+    raises after the stages."""
+    def capture(self, fn):
+        if fails == "capture":
+            raise RuntimeError("capture failed")
+        return _FakeGraph(), fn(), []
+
+    def load(self, *tensors):
+        raise RuntimeError("load failed")
+
+    monkeypatch.setattr(graphs.StageGraphs, "_capture", capture)
+    cache, held = graphs.GraphCache(), (torch.zeros(1),)
+    cache.acquire("k", held)
+    (entry,) = cache._entries.values()
+    with monkeypatch.context() as m:
+        if fails == "load":
+            m.setattr(graphs.StageGraphs, "load", load)
+        with pytest.raises(RuntimeError) if fails != "none" else nullcontext():
+            g = cache.stages("k", held, torch.ones(3))
+            try:
+                assert g.graphed and entry.lock.locked()
+                g.run(0, lambda: g.inputs[0] * 2)
+                if fails == "block":
+                    raise RuntimeError("the copy down failed")
+            finally:
+                g.release()
+    assert not entry.lock.locked()
+    assert entry.broken is (fails == "capture")
+    g, _ = _stage_search(cache, "k", held)
+    assert g.graphed is (fails != "capture")
+
+
+def test_stages_report_the_capture_and_add_the_launches_once_per_search(monkeypatch):
+    """A key's first search runs eagerly; its second captures (`captures`)
+    and its later ones replay; each graphed search reads the entry's static
+    inputs and adds the launches its capture recorded once."""
+    made = []
+
+    def capture(self, fn):
+        out = fn()
+        made.append(_FakeGraph())
+        return made[-1], out, [(tivf.LAUNCHES, "ivf_bucket_probe", 1)]
+
+    monkeypatch.setattr(graphs.StageGraphs, "_capture", capture)
+    cache, held = graphs.GraphCache(), (torch.zeros(1),)
+    seen = []
+    for _ in range(4):
+        before = tivf.LAUNCHES["ivf_bucket_probe"]
+        g, out = _stage_search(cache, "k", held)
+        seen.append((g.graphed, g.captures, tivf.LAUNCHES["ivf_bucket_probe"] - before))
+        assert float(out.sum()) == 6.0
+    # the capturing search too replays its graph once after the capture
+    assert seen == [(False, False, 0), (True, True, 1), (True, False, 1), (True, False, 1)]
+    assert len(made) == 1 and made[0].replays == 3
+    (entry,) = cache._entries.values()
+    assert g.inputs[0] is entry.inputs[0] and not entry.lock.locked()
 
 
 def test_recording_takes_this_threads_counts_only():
@@ -513,7 +616,7 @@ def test_a_held_key_runs_eagerly_in_another_thread(cuda, monkeypatch):
     want = _eager(monkeypatch, idx, qs, 1)
     _search_all(idx, qs[:2], 1)  # recorded, captured
     inside, go = threading.Event(), threading.Event()
-    real = ivf_mod.to_host
+    real = flat_mod.to_host
 
     def to_host(d, s):  # the replaying thread holds its entry here
         if threading.current_thread().name == "replayer":
@@ -521,7 +624,7 @@ def test_a_held_key_runs_eagerly_in_another_thread(cuda, monkeypatch):
             assert go.wait(60)
         return real(d, s)
 
-    monkeypatch.setattr(ivf_mod, "to_host", to_host)
+    monkeypatch.setattr(flat_mod, "to_host", to_host)  # the search skeleton's copy down
     out = {}
 
     def replayer():

@@ -107,13 +107,15 @@ class TestIVFLargeBatchDispatchPort:
         idx.upsert(list(range(900)), x)
         monkeypatch.setattr(type(idx), "_flat_beats_probe", lambda self, b, np_: True)
         flat_spy = []
-        real = flat_mod.FlatVectorIndex.search_arrays
+        # the port's IVF index runs its flat view's device work, not its
+        # search_arrays, inside the one search skeleton (vector/flat.py)
+        real = flat_mod.FlatVectorIndex._dispatch
 
         def spy(self, *a, **kw):
             flat_spy.append(1)
             return real(self, *a, **kw)
 
-        monkeypatch.setattr(flat_mod.FlatVectorIndex, "search_arrays", spy)
+        monkeypatch.setattr(flat_mod.FlatVectorIndex, "_dispatch", spy)
         d1, s1, p1 = idx.search_arrays(x[3], 5)
         assert flat_spy and p1[0][0] == 3
         n_flat = len(flat_spy)

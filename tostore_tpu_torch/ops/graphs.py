@@ -22,7 +22,8 @@ eagerly. Traffic of more keys than that never recaptures a key it evicted.
 A search that finds its entry held by another thread runs eagerly, so
 concurrent searches never queue behind one another. Launch counters move
 as the kernels run: a capture counts nothing, and each replay adds the
-launches its capture recorded (`_kernels.recording`).
+launches its capture recorded (`_kernels.recording`). A search takes its
+entry through `GraphCache.stages` and releases it with `Stages.release`.
 
 Nothing here runs at import time; capture and replay need a CUDA device.
 """
@@ -55,6 +56,29 @@ def identities(tensors) -> tuple:
 def eager(_stage: int, fn):
     """The eager counterpart of `StageGraphs.stage`: run the stage."""
     return fn()
+
+
+class Stages:
+    """One search's way through its stages (`GraphCache.stages`): `run(i,
+    fn)` gives stage i's output (`eager`, or the entry's `StageGraphs.stage`),
+    `inputs` are what the stages read (the entry's static buffers, or the
+    search's own), `graphed` says whether they run as the entry's graphs and
+    `captures` whether this search captures them. `release()` frees the
+    entry, once the search no longer reads the stages' outputs."""
+
+    __slots__ = ("run", "inputs", "graphed", "captures", "_entry")
+
+    def __init__(self, inputs: tuple, entry: "StageGraphs | None" = None):
+        self._entry = entry
+        self.graphed = entry is not None
+        self.run = entry.stage if self.graphed else eager
+        self.inputs = entry.load(*inputs) if self.graphed else inputs
+        self.captures = self.graphed and not entry.captured
+
+    def release(self):
+        if self._entry is not None:
+            entry, self._entry = self._entry, None
+            entry.lock.release()
 
 
 class StageGraphs:
@@ -164,3 +188,20 @@ class GraphCache:
             entry.lock.release()
             return None
         return entry
+
+    def stages(self, key, held: tuple, *inputs) -> Stages:
+        """A search's `Stages` through the entry of (key, the identities of
+        `held`): its graphs on its static buffers, loaded from `inputs`;
+        eagerly on `inputs` where the key is None or `acquire` gives no
+        entry. The entry stays locked until `Stages.release()` (released
+        here if the load fails): the stages' outputs are static buffers that
+        another search's replay would overwrite, so the search releases it
+        after their copy."""
+        entry = None if key is None else self.acquire(key, held)
+        if entry is None:
+            return Stages(inputs)
+        try:
+            return Stages(inputs, entry)
+        except BaseException:
+            entry.lock.release()
+            raise

@@ -14,9 +14,9 @@ single-device index (vector blocks [C_exp, cap, Dp], nibble-packable ADC
 codes [C_exp, M', cap]), so the bucket-scan kernels of ops/ivfprobe.py
 (K3 `bucket_probe_scores`, K4 `adc_bucket_scores`) run unchanged on every
 cell; the gather probes in plain PyTorch remain as the over-budget
-fallback. The per-cell bodies are the single-device index's own scans
-(vector/ivf.py), so a cell computes what a single-device index over its
-stripe would.
+fallback. Every cell runs the single-device index's probe
+(vector/ivf.py `_ivf_probe`) over its stripe, so a cell computes what a
+single-device index over its stripe would.
 
 Layout tensors are `Striped` over the shard axis with C_exp rows a
 stripe: row `shard * C_exp + slice` of the JAX package's global arrays is
@@ -28,20 +28,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import distance as D
 from ..ops.runtime import NEG_INF, round_up
 from ..vector.ivf import (
     IVFVectorIndex,
+    ProbeIndex,
     _bucket_bias,
     _CountOnly,
     _ivf_assign_device,
     _ivf_place_sliced,
-    _ivf_probe_scan,
-    _ivf_probe_scan_contig,
-    _ivf_probe_scan_pq,
-    _ivf_probe_scan_pq_contig,
+    _ivf_probe,
     _neg_sq_norms_rows,
-    _select_probes,
     auto_num_clusters,
 )
 from ..vector.pq import PQCodebook, pq_encode, train_pq
@@ -124,8 +120,8 @@ def _sharded_ivf_place(assign: Striped, valid: Striped, base: Replicated, vector
 
 def _sharded_bucket_bias(buckets: Striped, valid: Striped, sq_norms: Striped, *, l2: bool,
                          mesh: Mesh) -> Striped:
-    """Rebuild the per-shard bucket bias from current validity (per-call
-    slot masks, post-delete refresh). [nsh*c_exp, cap] f32."""
+    """Rebuild the per-shard bucket bias from current validity (the
+    post-delete refresh). [nsh*c_exp, cap] f32."""
     return Striped(mesh, {
         key: _bucket_bias(bk, valid.parts[key], sq_norms.parts[key], l2=l2)
         for key, bk in buckets.parts.items()})
@@ -137,13 +133,6 @@ def _sharded_bucket_codes(codes: Striped, buckets: Striped, *, mesh: Mesh) -> St
     return Striped(mesh, {
         key: codes.parts[key][torch.clamp(bk, min=0)].permute(0, 2, 1).contiguous()
         for key, bk in buckets.parts.items()})
-
-
-# Per-shard probe selection is the single-device index's: scores of the C
-# real centroids spread over their slices, so a fat cluster's slices tie
-# exactly and the lower slice wins, as `lax.top_k` picks among the
-# duplicated rows of the JAX package's expanded centroids.
-_probe_select = _select_probes
 
 
 def _run_probe(q, k: int, rps: int, mesh: Mesh, body):
@@ -159,89 +148,6 @@ def _run_probe(q, k: int, rps: int, mesh: Mesh, body):
         ts, gl = _pad_local(ts, pos + s * rps, k)
         local[(dpi, s)] = (ts, gl)
     return _merge_local_topk(local, k, mesh)
-
-
-def _sharded_ivf_probe_contig(
-    q, centroids, slice_cluster, slice_bias, buckets, bucket_vectors, bucket_scales,
-    bucket_bias, alpha, *, nprobe: int, k: int, l2: bool, rps: int, mesh: Mesh
-):
-    """Raw-vector probe through the per-shard bucket-contiguous stripes and
-    K3 (ops/ivfprobe.bucket_probe_scores): one sequential [cap, Dp] block
-    per (query, probe) instead of the per-row gathers of
-    `_sharded_ivf_probe`. l2 norms, validity and any slot mask are folded
-    into bucket_bias."""
-    def body(dpi, s, dev, qb):
-        # sq_norms only selects the l2 centroid-score correction there
-        return _ivf_probe_scan_contig(
-            qb, centroids.on(dev), slice_cluster.on(dev), slice_bias.on(dev),
-            buckets.part(dpi, s), bucket_vectors.part(dpi, s),
-            bucket_scales.part(dpi, s) if bucket_scales is not None else None,
-            bucket_bias.part(dpi, s), True if l2 else None, alpha, nprobe=nprobe, k=k)
-
-    return _run_probe(q, k, rps, mesh, body)
-
-
-def _sharded_ivf_probe_pq_contig(
-    q, centroids, slice_cluster, centroids_exp, slice_bias, buckets, bucket_codes, bucket_bias,
-    codebooks, vectors, scales, sq_norms, alpha,
-    *, nprobe: int, k: int, rerank: int, adc_metric: str, dims: int, l2: bool, rps: int,
-    mesh: Mesh
-):
-    """Residual-PQ probe through per-shard bucket-contiguous CODES and K4
-    (ops/ivfprobe.adc_bucket_scores, incl. the 4-bit nibble-packed
-    layout): every shard builds its per-(query, probe) residual tables
-    from the replicated expanded centroids, ADC-scans its code stripe,
-    re-ranks the local pool exactly against raw rows, and the per-shard
-    winners merge after one gather. bucket_bias is validity-only (ADC
-    distances are complete)."""
-    def body(dpi, s, dev, qb):
-        return _ivf_probe_scan_pq_contig(
-            qb, qb[:, :dims], centroids.on(dev), slice_cluster.on(dev),
-            centroids_exp.on(dev)[:, :dims], slice_bias.on(dev), buckets.part(dpi, s),
-            bucket_codes.part(dpi, s), codebooks.on(dev), vectors.part(dpi, s),
-            scales.part(dpi, s) if scales is not None else None, bucket_bias.part(dpi, s),
-            sq_norms.part(dpi, s) if l2 else None, alpha, nprobe=nprobe, k=k,
-            rerank=rerank, adc_metric=adc_metric, residual=True)
-
-    return _run_probe(q, k, rps, mesh, body)
-
-
-def _sharded_ivf_probe(
-    q, centroids, slice_cluster, slice_bias, buckets, vectors, scales, valid, sq_norms,
-    alpha, *, nprobe: int, k: int, l2: bool, rps: int, mesh: Mesh
-):
-    """The gather fallback of the raw probe, in plain PyTorch as the JAX
-    package leaves it to XLA: rows of the probed buckets gathered by
-    shard-local position from the stripe."""
-    def body(dpi, s, dev, qb):
-        return _ivf_probe_scan(
-            qb, centroids.on(dev), slice_cluster.on(dev), slice_bias.on(dev),
-            buckets.part(dpi, s), vectors.part(dpi, s),
-            scales.part(dpi, s) if scales is not None else None, valid.part(dpi, s),
-            sq_norms.part(dpi, s) if l2 else None, alpha, nprobe=nprobe, k=k)
-
-    return _run_probe(q, k, rps, mesh, body)
-
-
-def _sharded_ivf_probe_pq(
-    q, centroids, slice_cluster, centroids_exp, slice_bias, buckets, codes, codebooks, vectors,
-    scales, valid, sq_norms, alpha,
-    *, nprobe: int, k: int, rerank: int, adc_metric: str, dims: int, l2: bool, rps: int,
-    mesh: Mesh
-):
-    """The gather fallback of the residual-PQ probe (IVFADC per shard), in
-    plain PyTorch: ADC over the codes gathered by position, exact re-rank
-    of the local pool, merge."""
-    def body(dpi, s, dev, qb):
-        return _ivf_probe_scan_pq(
-            qb, qb[:, :dims], centroids.on(dev), slice_cluster.on(dev),
-            centroids_exp.on(dev)[:, :dims], slice_bias.on(dev), buckets.part(dpi, s),
-            codes.part(dpi, s), codebooks.on(dev), vectors.part(dpi, s),
-            scales.part(dpi, s) if scales is not None else None, valid.part(dpi, s),
-            sq_norms.part(dpi, s) if l2 else None, alpha, nprobe=nprobe, k=k,
-            rerank=rerank, adc_metric=adc_metric, residual=True)
-
-    return _run_probe(q, k, rps, mesh, body)
 
 
 class ShardedIVFIndex(ShardedFlatIndex):
@@ -798,6 +704,24 @@ class ShardedIVFIndex(ShardedFlatIndex):
 
     # --- search -----------------------------------------------------------------
 
+    def _shard_probe_index(self, dpi: int, s: int, dev) -> ProbeIndex:
+        """What `_ivf_probe` reads of cell (dpi, s): its stripe's tensors,
+        the replicated centroids and codebooks on its device (codebooks only
+        where codes exist; residual codes always)."""
+        def part(t):
+            return None if t is None else t.part(dpi, s)
+
+        pq = self.pq is not None and self.codes is not None
+        return ProbeIndex(
+            metric=self.metric, dims=self.dims, residual=True, centroids=self.centroids.on(dev),
+            slice_cluster=self._slice_cluster_dev.on(dev), slice_bias=self.slice_bias.on(dev),
+            centroids_exp=self.centroids_exp.on(dev), buckets_slots=part(self.buckets),
+            vectors=part(self.vectors), scales=part(self.scales), valid=part(self.valid),
+            sq_norms=part(self.sq_norms), bucket_vectors=part(self.bucket_vectors),
+            bucket_scales=part(self.bucket_scales), bucket_bias=part(self.bucket_bias),
+            codebooks=self._codebooks().on(dev) if pq else None, codes=part(self.codes),
+            bucket_codes=part(self.bucket_codes))
+
     def search_arrays(self, q, k: int, slot_mask=None, nprobe: int | None = None,
                       mode: str = "auto"):
         if (not self.trained or self.capacity == 0 or len(self) == 0
@@ -806,49 +730,23 @@ class ShardedIVFIndex(ShardedFlatIndex):
             # mode='exact' bypasses the probe for the full sharded scan
             return super().search_arrays(q, k, slot_mask=slot_mask, mode=mode)
         qx, qsq, b = self._prep_queries(q)
-        valid = self._masked_valid(slot_mask)
-        alpha = D.metric_alpha(self.metric)
-        l2 = self.metric == "l2"
+        if self._bias_stale:
+            # deletes staled the cached bucket bias: one rebuild, re-cached
+            # (a per-call mask folds into a bias of its own in `_ivf_probe`)
+            self.bucket_bias = _sharded_bucket_bias(
+                self.buckets, self.valid, self.sq_norms,
+                l2=self.metric == "l2" and self.bucket_vectors is not None, mesh=self.mesh)
+            self._bias_stale = False
+        allowed = None if slot_mask is None else self._masked_valid(slot_mask)
         np_probe = min(int(nprobe or self.nprobe), self.centroids_exp.shape[0])
-        use_mask = slot_mask is not None
+        pool = self.pq_rerank or max(self.rerank_factor * k, 51 * k, 512)
 
-        def contig_bias(with_norms: bool):
-            """Cached bucket bias, rebuilt when a per-call mask applies or
-            deletes staled it (the refresh re-caches; mask biases don't)."""
-            if not use_mask and not self._bias_stale:
-                return self.bucket_bias
-            bias = _sharded_bucket_bias(
-                self.buckets, valid, self.sq_norms, l2=with_norms, mesh=self.mesh
-            )
-            if not use_mask:
-                self.bucket_bias = bias
-                self._bias_stale = False
-            return bias
+        def body(dpi, s, dev, qb):
+            return _ivf_probe(qb, self._shard_probe_index(dpi, s, dev), k=k, nprobe=np_probe,
+                              rerank=pool,
+                              slot_mask=None if allowed is None else allowed.part(dpi, s))
 
-        cents = (self.centroids, self._slice_cluster_dev)
-        common = dict(nprobe=np_probe, k=k, l2=l2, rps=self._rows_per_shard(),
-                      mesh=self.mesh)
-        if self.pq is not None and self.codes is not None:
-            adc = dict(rerank=self.pq_rerank or max(self.rerank_factor * k, 51 * k, 512),
-                       adc_metric="dot" if self.metric == "dot" else "l2", dims=self.dims)
-            if self.bucket_codes is not None:
-                scores, idx = _sharded_ivf_probe_pq_contig(
-                    qx, *cents, self.centroids_exp, self.slice_bias, self.buckets,
-                    self.bucket_codes, contig_bias(False), self._codebooks(),
-                    self.vectors, self.scales, self.sq_norms, alpha, **adc, **common)
-            else:
-                scores, idx = _sharded_ivf_probe_pq(
-                    qx, *cents, self.centroids_exp, self.slice_bias, self.buckets,
-                    self.codes, self._codebooks(), self.vectors, self.scales, valid,
-                    self.sq_norms, alpha, **adc, **common)
-        elif self.bucket_vectors is not None:
-            scores, idx = _sharded_ivf_probe_contig(
-                qx, *cents, self.slice_bias, self.buckets, self.bucket_vectors,
-                self.bucket_scales, contig_bias(l2), alpha, **common)
-        else:
-            scores, idx = _sharded_ivf_probe(
-                qx, *cents, self.slice_bias, self.buckets, self.vectors, self.scales,
-                valid, self.sq_norms, alpha, **common)
+        scores, idx = _run_probe(qx, k, self._rows_per_shard(), self.mesh, body)
         return self._results(scores, idx, qsq, b)
 
     # search(): inherited; the base passes extra kwargs (nprobe) through

@@ -8,6 +8,10 @@ vector_index_manager.dart:1411-1423), including cosine query normalization
 
 A slot mask (bool [capacity] tensor on the corpus's device) folds into the
 kernel's bias, so a filtered search costs the same scan.
+
+`run_search` is the one skeleton of a single-device search, the flat
+scan's and the IVF probe's (vector/ivf.py): an index supplies only its
+device work.
 """
 
 from __future__ import annotations
@@ -70,6 +74,43 @@ def prep_queries(corpus: DeviceCorpus, metric: str, q) -> tuple[torch.Tensor, to
 def to_host(dist: torch.Tensor, slots: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
     """A search's copy down: (distances f32, slots int64) as host arrays."""
     return dist.cpu().numpy().astype(np.float32), slots.cpu().numpy().astype(np.int64)
+
+
+def search_host(corpus: DeviceCorpus, metric: str, q, k: int, dispatch,
+                *args) -> tuple[np.ndarray, np.ndarray]:
+    """(distances [B, k] f32, slots [B, k] i64, -1 for no-hit) on the host:
+    inf / -1 for an empty corpus; else the queries' preparation, the index's
+    device work `dispatch(qt, qsq, k, hold, *args)` -> (distances, slots) on
+    the device, and their copy down, each a span. A dispatch whose outputs
+    live in buffers it holds (a CUDA-graph entry, ops/graphs.py) appends
+    their release to the list `hold`, called after the copy down on every
+    path."""
+    if corpus.capacity == 0 or len(corpus) == 0:
+        b = 1 if np.asarray(q).ndim == 1 else np.asarray(q).shape[0]
+        return np.full((b, k), np.inf, np.float32), np.full((b, k), -1, np.int64)
+    with span("vector_search.prep"):
+        qt, qsq, _ = prep_queries(corpus, metric, q)
+    hold = []
+    try:
+        with span("vector_search.dispatch"):
+            d_dev, s_dev = dispatch(qt, qsq, k, hold, *args)
+        with span("vector_search.wait"):
+            return to_host(d_dev, s_dev)
+    finally:
+        for release in hold:
+            release()
+
+
+def run_search(corpus: DeviceCorpus, metric: str, q, k: int, dispatch, *args,
+               hits: bool = False, threshold: float | None = None):
+    """`search_host`, then the results stage (a span): (distances, slots,
+    pks [B, k] object), or with `hits` the first query's `hits_of`."""
+    dist, slots = search_host(corpus, metric, q, k, dispatch, *args)
+    with span("vector_search.results"):
+        if hits:
+            return hits_of(metric, dist[0], slots[0] >= 0, corpus.pks_for_slots(slots[0]),
+                           threshold)
+        return dist, slots, corpus.pks_for_slots(slots)
 
 
 class FlatVectorIndex:
@@ -141,44 +182,29 @@ class FlatVectorIndex:
         bias = D.make_bias(self.metric, norms, valid)
         return bias, alpha, c.scales
 
-    def _scan(self, q: np.ndarray, k: int, slot_mask: torch.Tensor | None,
-              mode: str) -> tuple[np.ndarray, np.ndarray]:
-        """(distances [B, k] f32, slots [B, k] i64 with -1 for no-hit):
-        the queries' preparation, the scan and selection enqueued on the
-        device, and the wait for their copy down, each a span."""
-        c = self.corpus
-        if c.capacity == 0 or len(c) == 0:
-            b = 1 if np.asarray(q).ndim == 1 else np.asarray(q).shape[0]
-            return np.full((b, k), np.inf, np.float32), np.full((b, k), -1, np.int64)
-        with span("vector_search.prep"):
-            qt, qsq, _ = self._prep_queries(q)
-        with span("vector_search.dispatch"):
-            with span("vector_search.bias"):
-                bias, alpha, row_scale = self._bias_alpha(slot_mask)
-            scores, idx = T.flat_search(
-                qt, c.vectors, bias, k=k, alpha=alpha, mode=mode, row_scale=row_scale
-            )
-            d_dev, s_dev = D.finalize_results(self.metric, scores, idx, qsq)
-        with span("vector_search.wait"):
-            return to_host(d_dev, s_dev)
+    def _dispatch(self, qt, qsq, k: int, hold, slot_mask: torch.Tensor | None, mode: str):
+        """The flat scan's device work for `run_search`: (distances, slots)
+        on the device."""
+        with span("vector_search.bias"):
+            bias, alpha, row_scale = self._bias_alpha(slot_mask)
+        scores, idx = T.flat_search(
+            qt, self.corpus.vectors, bias, k=k, alpha=alpha, mode=mode, row_scale=row_scale
+        )
+        return D.finalize_results(self.metric, scores, idx, qsq)
 
     def search_arrays(self, q: np.ndarray, k: int,
                       slot_mask: torch.Tensor | None = None,
                       mode: str = "auto") -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Batch search. Returns (distances [B,k] f32, slots [B,k] i64 with
         -1 for no-hit, pks [B,k] object)."""
-        dist, slots = self._scan(q, k, slot_mask, mode)
-        with span("vector_search.results"):
-            return dist, slots, self.corpus.pks_for_slots(slots)
+        return run_search(self.corpus, self.metric, q, k, self._dispatch, slot_mask, mode)
 
     def search(self, q: np.ndarray, top_k: int = 10, threshold: float | None = None,
                slot_mask: torch.Tensor | None = None,
                mode: str = "auto") -> list[VectorSearchResult]:
         """Single-query search with reference result semantics."""
-        dist, slots = self._scan(q, top_k, slot_mask, mode)
-        with span("vector_search.results"):
-            return hits_of(self.metric, dist[0], slots[0] >= 0,
-                           self.corpus.pks_for_slots(slots[0]), threshold)
+        return run_search(self.corpus, self.metric, q, top_k, self._dispatch, slot_mask, mode,
+                          hits=True, threshold=threshold)
 
     # --- persistence ---------------------------------------------------------
 

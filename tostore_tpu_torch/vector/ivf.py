@@ -26,6 +26,7 @@ mutation count that install checks (capture_build_state).
 from __future__ import annotations
 
 import time
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -39,7 +40,7 @@ from ..ops.runtime import NEG_INF, f32_dot, round_up, score_dtype
 from ..ops.topk import MISS_FLOOR, top_k_first
 from ..utils.spans import span
 from .corpus import DeviceCorpus
-from .flat import _METRIC_ALIASES, FlatVectorIndex, hits_of, prep_queries, to_host
+from .flat import FlatVectorIndex, run_search
 from .pq import (
     PQCodebook,
     _kmeans_all_subspaces,
@@ -108,16 +109,6 @@ def _probe_graph_eligible(device: torch.device, raw_contig: bool, masked: bool, 
     mask, for at most GRAPH_MAX_B queries. The PQ and gather routes, masked
     searches and larger batches run eagerly."""
     return device.type == "cuda" and raw_contig and not masked and b <= GRAPH_MAX_B
-
-
-# Each probe route is three stages: probe selection (`_select_probes`), a
-# scan that scores every candidate of the probed slices (probes in probe
-# order, each slice in row order), and a selection over those candidates
-# (`_final_topk`, or `_rerank` after ADC). `IVFVectorIndex._probe` runs
-# them as its `probes`, `scan` and `select` spans (on the raw contiguous
-# route, where `_probe_graph_eligible` holds, as CUDA graphs); the
-# `_ivf_probe_scan*` functions run them back to back for the sharded index
-# and the scripts.
 
 
 def _scan_contig(q, probe, buckets_slots, bucket_vectors, bucket_scale, bucket_bias, alpha):
@@ -203,47 +194,65 @@ def _rerank(q, s_adc, slots, vectors, scales, sq_norms, alpha, *, k: int, rerank
     return _final_topk(s, cand, k)
 
 
-def _ivf_probe_scan(q, centroids, slice_cluster, slice_bias, buckets_slots, vectors,
-                    scales, valid, sq_norms, alpha, *, nprobe: int, k: int):
-    """Raw probe by slot gather. Returns (scores [B, k] desc, slots [B, k])."""
-    probe = _select_probes(q, centroids, slice_cluster, slice_bias, sq_norms is not None, nprobe)
-    cand = _scan_gather(q, probe, buckets_slots, vectors, scales, valid, sq_norms, alpha)
-    return _final_topk(*cand, k)
+# What a probe reads of one index, or of one shard (`_ivf_probe`): the metric,
+# the unpadded dims, whether PQ codes are residual (IVFADC), and tensors: the
+# centroids and slice map, the bucket table, the rows with their validity and
+# norms, the bucket-contiguous copies and the PQ codebooks (None where absent).
+ProbeIndex = namedtuple("ProbeIndex", [
+    "metric", "dims", "residual", "centroids", "slice_cluster", "slice_bias", "centroids_exp",
+    "buckets_slots", "vectors", "scales", "valid", "sq_norms", "bucket_vectors",
+    "bucket_scales", "bucket_bias", "codebooks", "codes", "bucket_codes"])
 
 
-def _ivf_probe_scan_pq(q, q_raw, centroids, slice_cluster, cents_unpad, slice_bias,
-                       buckets_slots, codes, codebooks, vectors, scales, valid, sq_norms,
-                       alpha, *, nprobe: int, k: int, rerank: int, adc_metric: str,
-                       residual: bool):
-    """PQ probe by code gather: ADC over the gathered codes selects a
-    re-rank pool of `rerank` candidates, which are scored exactly against
-    the raw rows."""
-    probe = _select_probes(q, centroids, slice_cluster, slice_bias, sq_norms is not None, nprobe)
-    cand = _scan_pq_gather(q_raw, probe, cents_unpad, buckets_slots, codes, codebooks, valid,
-                           adc_metric=adc_metric, residual=residual)
-    return _rerank(q, *cand, vectors, scales, sq_norms, alpha, k=k, rerank=rerank)
+def _ivf_probe(q, t: ProbeIndex, *, k: int, nprobe: int, rerank: int = 0, slot_mask=None,
+               run=graphs.eager, finish=None):
+    """The probe of one index, or of one shard, for prepared queries q [B,
+    Dp], in three stages, each a span: probe selection (`_select_probes`),
+    a scan that scores every candidate of the probed slices (probes in
+    probe order, each slice in row order), and a selection over those
+    candidates (`_final_topk`, or `_rerank` of a pool of `rerank` after
+    ADC). The route is the one the tensors of `t` give: PQ where
+    `codebooks` is set, else raw; over the bucket-contiguous copy where
+    there is one (K4, K3), else by gather. A per-call `slot_mask` folds
+    into `valid` and `bucket_bias` inside the scan. `run(i, fn)` runs stage
+    i of the raw contiguous route (`graphs.eager`, or a CUDA-graph entry's
+    stage), whose last stage also runs `finish`. Returns finish(scores [B,
+    k] desc, slots [B, k]), or that pair where `finish` is None."""
+    l2 = t.metric == "l2"
+    alpha = D.metric_alpha(t.metric)
+    sqn = t.sq_norms if l2 else None
+    pq = t.codebooks is not None
+    with span("vector_search.probes"):
+        probe = run(0, lambda: _select_probes(q, t.centroids, t.slice_cluster, t.slice_bias, l2,
+                                              nprobe))
+    with span("vector_search.scan"):
+        valid = t.valid if slot_mask is None else t.valid & slot_mask
+        if pq:
+            adc = dict(adc_metric="dot" if t.metric == "dot" else "l2", residual=t.residual)
+            q_raw, cents_unpad = q[:, : t.dims], t.centroids_exp[:, : t.dims]
+            if t.bucket_codes is not None:
+                bias = (t.bucket_bias if slot_mask is None
+                        else _bucket_bias(t.buckets_slots, valid, t.sq_norms, l2=False))
+                cand = _scan_pq_contig(q_raw, probe, cents_unpad, t.buckets_slots,
+                                       t.bucket_codes, t.codebooks, bias, **adc)
+            else:
+                cand = _scan_pq_gather(q_raw, probe, cents_unpad, t.buckets_slots, t.codes,
+                                       t.codebooks, valid, **adc)
+        elif t.bucket_vectors is not None:
+            bias = (t.bucket_bias if slot_mask is None
+                    else _bucket_bias(t.buckets_slots, valid, t.sq_norms, l2=l2))
+            cand = run(1, lambda: _scan_contig(q, probe, t.buckets_slots, t.bucket_vectors,
+                                               t.bucket_scales, bias, alpha))
+        else:
+            cand = _scan_gather(q, probe, t.buckets_slots, t.vectors, t.scales, valid, sqn,
+                                alpha)
+    with span("vector_search.select"):
+        def select():
+            top = (_rerank(q, *cand, t.vectors, t.scales, sqn, alpha, k=k, rerank=rerank)
+                   if pq else _final_topk(*cand, k))
+            return top if finish is None else finish(*top)
 
-
-def _ivf_probe_scan_pq_contig(q, q_raw, centroids, slice_cluster, cents_unpad, slice_bias,
-                              buckets_slots, bucket_codes, codebooks, vectors, scales,
-                              bucket_bias, sq_norms, alpha, *, nprobe: int, k: int,
-                              rerank: int, adc_metric: str, residual: bool):
-    """PQ probe over bucket-contiguous CODES: K4 selects a re-rank pool,
-    which is re-scored exactly against the raw rows."""
-    probe = _select_probes(q, centroids, slice_cluster, slice_bias, sq_norms is not None, nprobe)
-    cand = _scan_pq_contig(q_raw, probe, cents_unpad, buckets_slots, bucket_codes, codebooks,
-                           bucket_bias, adc_metric=adc_metric, residual=residual)
-    return _rerank(q, *cand, vectors, scales, sq_norms, alpha, k=k, rerank=rerank)
-
-
-def _ivf_probe_scan_contig(q, centroids, slice_cluster, slice_bias, buckets_slots,
-                           bucket_vectors, bucket_scale, bucket_bias, sq_norms, alpha, *,
-                           nprobe: int, k: int):
-    """Raw probe over the bucket-CONTIGUOUS corpus copy with K3; sq_norms
-    only selects the centroid-score correction."""
-    probe = _select_probes(q, centroids, slice_cluster, slice_bias, sq_norms is not None, nprobe)
-    cand = _scan_contig(q, probe, buckets_slots, bucket_vectors, bucket_scale, bucket_bias, alpha)
-    return _final_topk(*cand, k)
+        return select() if pq else run(2, select)
 
 
 # --------------------------------------------------------------------------
@@ -416,11 +425,10 @@ class IVFVectorIndex:
                  num_clusters: int = 0, nprobe: int = 8, pq_subspaces: int = 0,
                  pq_centroids: int = 0, rerank_factor: int = 2, min_train_size: int = 256,
                  pq_residual: bool = True, pq_rerank: int = 0, *, device):
-        name = _METRIC_ALIASES.get(metric)
-        if name is None:
-            raise ValueError(f"unknown metric {metric!r}")
-        self.metric = name
-        self.corpus = DeviceCorpus(dims, precision, normalize=(name == "cosine"), device=device)
+        # the exact flat scan of this index's rows (mode 'exact', an untrained
+        # index, a batch the cost model gives it), which holds the corpus
+        self._flat = FlatVectorIndex(dims, metric, precision, device=device)
+        self.metric = self._flat.metric
         self.num_clusters_cfg = num_clusters
         self.nprobe = nprobe
         self.pq_subspaces = pq_subspaces
@@ -466,6 +474,16 @@ class IVFVectorIndex:
 
     def __len__(self):
         return len(self.corpus)
+
+    @property
+    def corpus(self) -> DeviceCorpus:
+        """The index's rows, held by its flat view (also one set in place of
+        another, convert.py)."""
+        return self._flat.corpus
+
+    @corpus.setter
+    def corpus(self, corpus: DeviceCorpus):
+        self._flat.corpus = corpus
 
     @property
     def dims(self):
@@ -1125,11 +1143,12 @@ class IVFVectorIndex:
 
     # --- search ---------------------------------------------------------------
 
-    def _flat_view(self, q, nprobe: int | None, mode: str):
-        """The exact flat scan of this index's corpus, as a FlatVectorIndex
-        view, where it answers the search (an empty corpus, an untrained
-        index, mode 'exact', or a batch the flat scan serves faster than
-        the probe), with the mode it runs in; else None."""
+    def _choose_dispatch(self, q, slot_mask: torch.Tensor | None, nprobe: int | None,
+                         mode: str) -> tuple:
+        """The device work of a search for `run_search`, as (dispatch, its
+        arguments): the flat view's scan where it answers (an untrained
+        index, mode 'exact', or a batch the flat scan serves faster than the
+        probe), else the probe."""
         c = self.corpus
         qn = np.asarray(q)
         b_est = 1 if qn.ndim == 1 else qn.shape[0]
@@ -1139,13 +1158,10 @@ class IVFVectorIndex:
             self.train()
         np_est = min(int(nprobe or self.nprobe),
                      self.centroids_exp.shape[0] if self.trained else 1)
-        if (len(c) == 0 or not self.trained or mode == "exact"
+        if (not self.trained or mode == "exact"
                 or (mode != "probe" and self._flat_beats_probe(b_est, np_est))):
-            tmp = FlatVectorIndex.__new__(FlatVectorIndex)
-            tmp.metric = self.metric
-            tmp.corpus = c
-            return tmp, (mode if mode in ("exact", "fast") else "auto")
-        return None
+            return self._flat._dispatch, slot_mask, mode if mode in ("exact", "fast") else "auto"
+        return self._probe, slot_mask, nprobe
 
     def _probe_graph_tensors(self) -> tuple:
         """The index's tensors that the raw contiguous probe's stages read,
@@ -1153,87 +1169,44 @@ class IVFVectorIndex:
         return (self.centroids, self._slice_cluster_dev, self.slice_bias, self.buckets_slots,
                 self.bucket_vectors, self.bucket_scales, self.bucket_bias)
 
-    def _probe(self, q, k: int, slot_mask: torch.Tensor | None, nprobe: int | None):
-        """(distances [B, k], slots [B, k]) from the probe: the queries'
-        preparation, the probe enqueued on the device (its three stages
-        each a span inside the dispatch: `probes`, `scan`, `select`), and
-        the wait for the copy down, each a span. Where
-        `_probe_graph_eligible` holds, the stages are CUDA graphs
-        (ops/graphs.py) replayed from static buffers, keyed by the search's
-        shape and the index's tensors; else, and for a key's first search
-        or a key another thread is replaying, they run eagerly."""
-        with span("vector_search.prep"):
-            qt, qsq, _ = prep_queries(self.corpus, self.metric, q)
-
-        graph = None
-        try:
-            with span("vector_search.dispatch"):
-                # nprobe counts SLICES: the scan budget is ~nprobe*cap rows
-                np_probe = min(int(nprobe or self.nprobe), self.centroids_exp.shape[0])
-                pq = self.pq is not None and (self.bucket_codes is not None
-                                              or self.codes is not None)
-                if _probe_graph_eligible(qt.device, not pq and self.bucket_vectors is not None,
-                                         slot_mask is not None, qt.shape[0]):
-                    graph = self._probe_graphs.acquire((qt.shape[0], k, np_probe, self.metric),
-                                                       self._probe_graph_tensors())
-                run = graphs.eager
-                if graph is not None:
-                    capturing = not graph.captured
-                    qt, qsq = graph.load(qt, qsq)
-                    run = graph.stage
-                d_dev, s_dev = self._probe_stages(qt, qsq, k, slot_mask, np_probe, pq, run)
-                if graph is not None:  # counted once the stages ran
-                    if capturing:
-                        _kernels.count(PROBE_LAUNCHES, "ivf_probe_graph_capture")
-                    _kernels.count(PROBE_LAUNCHES, "ivf_probe_graph")
-            with span("vector_search.wait"):
-                return to_host(d_dev, s_dev)
-        finally:
-            if graph is not None:
-                graph.lock.release()
-
-    def _probe_stages(self, qt, qsq, k: int, slot_mask, np_probe: int, pq: bool, run):
-        """The probe's three stages, each a span, enqueued on the device:
-        (distances, slots) there. `run(i, fn)` runs the device work of stage
-        i of the raw contiguous route: `graphs.eager`, or a key's
-        `StageGraphs.stage`, which captures and replays it."""
+    def _probe_index(self) -> ProbeIndex:
+        """What `_ivf_probe` reads of this index (codebooks only where codes
+        exist)."""
         c = self.corpus
-        l2 = self.metric == "l2"
-        alpha = D.metric_alpha(self.metric)
-        sqn = c.sq_norms if l2 else None
-        with span("vector_search.probes"):
-            probe = run(0, lambda: _select_probes(qt, self.centroids, self._slice_cluster_dev,
-                                                  self.slice_bias, l2, np_probe))
-        with span("vector_search.scan"):
-            valid = c.valid if slot_mask is None else c.valid & slot_mask
-            if pq:
-                adc = dict(adc_metric="dot" if self.metric == "dot" else "l2",
-                           residual=self.pq_residual)
-                q_raw, cents_unpad = qt[:, : c.dims], self.centroids_exp[:, : c.dims]
-                if self.bucket_codes is not None:
-                    bias = (self.bucket_bias if slot_mask is None
-                            else _bucket_bias(self.buckets_slots, valid, c.sq_norms, l2=False))
-                    cand = _scan_pq_contig(q_raw, probe, cents_unpad, self.buckets_slots,
-                                           self.bucket_codes, self.pq.codebooks, bias, **adc)
-                else:
-                    cand = _scan_pq_gather(q_raw, probe, cents_unpad, self.buckets_slots,
-                                           self.codes, self.pq.codebooks, valid, **adc)
-            elif self.bucket_vectors is not None:
-                bias = (self.bucket_bias if slot_mask is None
-                        else _bucket_bias(self.buckets_slots, valid, c.sq_norms, l2=l2))
-                cand = run(1, lambda: _scan_contig(qt, probe, self.buckets_slots,
-                                                   self.bucket_vectors, self.bucket_scales,
-                                                   bias, alpha))
-            else:
-                cand = _scan_gather(qt, probe, self.buckets_slots, c.vectors, c.scales,
-                                    valid, sqn, alpha)
-        with span("vector_search.select"):
-            if pq:
-                # the re-rank pool: the JAX package's recall-derived floor of 512
-                pool = self.pq_rerank or max(self.rerank_factor * k, 51 * k, 512)
-                top = _rerank(qt, *cand, c.vectors, c.scales, sqn, alpha, k=k, rerank=pool)
-                return D.finalize_results(self.metric, *top, qsq)
-            return run(2, lambda: D.finalize_results(self.metric, *_final_topk(*cand, k), qsq))
+        pq = self.pq is not None and (self.bucket_codes is not None or self.codes is not None)
+        # positional, in field order: keywords cost twice as much on the search path
+        return ProbeIndex(
+            self.metric, c.dims, self.pq_residual, self.centroids, self._slice_cluster_dev,
+            self.slice_bias, self.centroids_exp, self.buckets_slots, c.vectors, c.scales,
+            c.valid, c.sq_norms, self.bucket_vectors, self.bucket_scales, self.bucket_bias,
+            self.pq.codebooks if pq else None, self.codes, self.bucket_codes)
+
+    def _probe(self, qt, qsq, k: int, hold, slot_mask: torch.Tensor | None,
+               nprobe: int | None):
+        """The probe's device work for `run_search`: (distances, slots) on
+        the device from `_ivf_probe`. Where `_probe_graph_eligible` holds,
+        its stages run through the CUDA graphs of the key (the search's
+        shape; ops/graphs.py), whose entry's release goes to `hold`."""
+        # nprobe counts SLICES: the scan budget is ~nprobe*cap rows
+        np_probe = min(int(nprobe or self.nprobe), self.centroids_exp.shape[0])
+        t = self._probe_index()
+        raw_contig = t.codebooks is None and t.bucket_vectors is not None
+        key = ((qt.shape[0], k, np_probe, self.metric)
+               if _probe_graph_eligible(qt.device, raw_contig, slot_mask is not None,
+                                        qt.shape[0]) else None)
+        g = self._probe_graphs.stages(key, self._probe_graph_tensors(), qt, qsq)
+        hold.append(g.release)
+        qt, qsq = g.inputs
+        # the re-rank pool: the JAX package's recall-derived floor of 512
+        pool = self.pq_rerank or max(self.rerank_factor * k, 51 * k, 512)
+        out = _ivf_probe(qt, t, k=k, nprobe=np_probe, rerank=pool, slot_mask=slot_mask,
+                         run=g.run,
+                         finish=lambda s, i: D.finalize_results(self.metric, s, i, qsq))
+        if g.graphed:  # counted once the stages ran
+            if g.captures:
+                _kernels.count(PROBE_LAUNCHES, "ivf_probe_graph_capture")
+            _kernels.count(PROBE_LAUNCHES, "ivf_probe_graph")
+        return out
 
     def search_arrays(self, q, k: int, slot_mask: torch.Tensor | None = None,
                       nprobe: int | None = None, mode: str = "auto"):
@@ -1241,22 +1214,14 @@ class IVFVectorIndex:
 
         mode='exact' bypasses the probe and runs the exact flat scan over
         the whole corpus (vector_index_manager.dart:475)."""
-        flat = self._flat_view(q, nprobe, mode)
-        if flat is not None:
-            return flat[0].search_arrays(q, k, slot_mask=slot_mask, mode=flat[1])
-        dist, slots = self._probe(q, k, slot_mask, nprobe)
-        with span("vector_search.results"):
-            return dist, slots, self.corpus.pks_for_slots(slots)
+        return run_search(self.corpus, self.metric, q, k,
+                          *self._choose_dispatch(q, slot_mask, nprobe, mode))
 
     def search(self, q, top_k: int = 10, threshold=None, slot_mask=None, nprobe=None,
                mode: str = "auto") -> list[VectorSearchResult]:
-        flat = self._flat_view(q, nprobe, mode)
-        if flat is not None:
-            return flat[0].search(q, top_k, threshold, slot_mask, mode=flat[1])
-        dist, slots = self._probe(q, top_k, slot_mask, nprobe)
-        with span("vector_search.results"):
-            return hits_of(self.metric, dist[0], slots[0] >= 0,
-                           self.corpus.pks_for_slots(slots[0]), threshold)
+        return run_search(self.corpus, self.metric, q, top_k,
+                          *self._choose_dispatch(q, slot_mask, nprobe, mode),
+                          hits=True, threshold=threshold)
 
     # --- persistence ----------------------------------------------------------
 
