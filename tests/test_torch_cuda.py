@@ -697,8 +697,9 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, monkeypatch, tmp_path, prec)
     """The same rows through `ToStoreTPU` on the default device (the card)
     and with device="cpu": equal pks, through the flat table (K1), the IVF
     table after maintenance trained it (K3) and a filtered search; from 8
-    threads every search launches K1 once; a checkpoint, a WAL tail, a hard
-    drop and a reopen on the card keep the answers."""
+    threads every search launches K1 once (the search that captures the
+    key's CUDA graph twice: eagerly, then replayed); a checkpoint, a WAL
+    tail, a hard drop and a reopen on the card keep the answers."""
     import threading
 
     import tostore_tpu_torch as P
@@ -748,6 +749,7 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, monkeypatch, tmp_path, prec)
     db = dbs["card"]
     k1 = _kernel_name("lane_topk_acc", prec)
     ttopk.LAUNCHES[k1] = 0
+    captures = ttopk.LAUNCHES["flat_graph_capture"]
     out = [None] * 8
 
     def worker(i):
@@ -759,7 +761,9 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, monkeypatch, tmp_path, prec)
         th.start()
     for th in threads:
         th.join()
-    assert ttopk.LAUNCHES[k1] == 160 and all(o == out[0] for o in out)
+    captures = ttopk.LAUNCHES["flat_graph_capture"] - captures
+    assert captures == 1 and ttopk.LAUNCHES[k1] == 160 + captures
+    assert all(o == out[0] for o in out)
 
     db.flush()
     assert db.batch_insert("flat", recs[8000:]).is_success  # lives only in the WAL

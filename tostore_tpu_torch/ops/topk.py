@@ -103,9 +103,13 @@ _CTAS_PER_SM_F32 = 2
 
 # Launches of each hand-written kernel, counted where the wrapper launches
 # it; a run reads them to show which kernels its path went through.
+# `flat_graph` counts the flat searches whose K1 route ran as a CUDA graph
+# (vector/flat.py), `flat_graph_capture` the keys captured: searches, not
+# kernels.
 LAUNCHES = {"lane_topk_acc": 0, "lane_topk_emit": 0, "lane_topk_acc_f32": 0,
             "lane_topk_emit_f32": 0, "lane_topk_group": 0, "lane_topk_group_pipe": 0,
-            "lane_topk_group_f32": 0, "lane_topk_group_pipe_f32": 0, "select_topk": 0}
+            "lane_topk_group_f32": 0, "lane_topk_group_pipe_f32": 0, "select_topk": 0,
+            "flat_graph": 0, "flat_graph_capture": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -968,6 +972,25 @@ def _auto_route(b_pad: int, corpus_dtype, device_type: str) -> str:
     return "fused"
 
 
+def flat_route(b: int, shape, dtype, device_type: str, k: int, mode: str) -> str:
+    """The kernel `flat_search` runs for b queries over a corpus of `shape`
+    [n, d]: "k1" (`fused_flat_topk` up to ACC_MAX_BLK_B padded queries,
+    its running per-lane top-T), "k2" (`fused_flat_topk` above), "exact"
+    (`flat_topk_xla`) or "lane" (`flat_topk_lane`). Mode 'fused' forces
+    K1 / K2; `auto` takes an approximate path only over a block-aligned
+    corpus of at least MIN_FUSED_N rows with k within two candidates a
+    lane, and then the one `_auto_route` gives."""
+    n, d = shape
+    b_pad = round_up(b, 8)
+    if mode != "fused":
+        if (mode == "exact" or n % DEFAULT_BLK_N or d % LANE or k > CANDS_PER_LANE * LANE
+                or n < MIN_FUSED_N):
+            return "exact"
+        if _auto_route(b_pad, dtype, device_type) != "fused":
+            return "lane"
+    return "k1" if b_pad <= ACC_MAX_BLK_B else "k2"
+
+
 def flat_search(q, corpus, bias, *, k: int, alpha: float = 1.0,
                 mode: str = "auto", row_scale=None):
     """Dispatch:
@@ -982,13 +1005,9 @@ def flat_search(q, corpus, bias, *, k: int, alpha: float = 1.0,
       mode="fused" contract, ties included (K2's (block, lane) buckets and
       their order), not its `auto` one (the lane scan's (chunk, lane)
       buckets), which may keep another row among equal scores."""
-    n, d = corpus.shape
-    aligned = n % DEFAULT_BLK_N == 0 and d % LANE == 0
-    approx_ok = aligned and k <= CANDS_PER_LANE * LANE
-    if mode == "fused":
-        return fused_flat_topk(q, corpus, bias, k=k, alpha=alpha, row_scale=row_scale)
-    if mode == "exact" or not approx_ok or n < MIN_FUSED_N:
+    route = flat_route(q.shape[0], corpus.shape, corpus.dtype, corpus.device.type, k, mode)
+    if route == "exact":
         return flat_topk_xla(q, corpus, bias, alpha, k, row_scale=row_scale)
-    if _auto_route(round_up(q.shape[0], 8), corpus.dtype, corpus.device.type) == "fused":
-        return fused_flat_topk(q, corpus, bias, k=k, alpha=alpha, row_scale=row_scale)
-    return flat_topk_lane(q, corpus, bias, k=k, alpha=alpha, row_scale=row_scale)
+    if route == "lane":
+        return flat_topk_lane(q, corpus, bias, k=k, alpha=alpha, row_scale=row_scale)
+    return fused_flat_topk(q, corpus, bias, k=k, alpha=alpha, row_scale=row_scale)

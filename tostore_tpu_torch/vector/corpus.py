@@ -85,6 +85,10 @@ class DeviceCorpus:
         self._high = 0  # first never-used slot
         self.deleted_count = 0
         self.filter_columns = FilterColumns(self.device)
+        # what the flat scan (vector/flat.py, its only user) derives from
+        # the tensors below: views of the live prefix and the CUDA graphs
+        # that read them; `forget_scan` drops it wherever they are replaced
+        self.scan = None
 
     # --- capacity ---------------------------------------------------------
 
@@ -115,6 +119,12 @@ class DeviceCorpus:
             m, e = 8, e + 1
         return ROW_BLOCK * (m << e)
 
+    def forget_scan(self):
+        """Drop the flat scan's state (`scan`), which holds the corpus's
+        tensors: called wherever those are replaced, so that the old ones
+        are freed at once."""
+        self.scan = None
+
     def _alloc(self, cap: int):
         dev = self.device
         vec = torch.zeros((cap, self.d_pad), dtype=self.dtype, device=dev)
@@ -142,6 +152,7 @@ class DeviceCorpus:
             if scl is not None:
                 scl[:c] = self.scales
         self.vectors, self.valid, self.sq_norms, self.scales = vec, val, nrm, scl
+        self.forget_scan()
         pks = np.empty(new_cap, dtype=object)
         pks[: len(self._slot_pks)] = self._slot_pks
         self._slot_pks = pks
@@ -280,6 +291,7 @@ class DeviceCorpus:
             if scl is not None:
                 scl[:m] = self.scales[gather]
         self.vectors, self.valid, self.sq_norms, self.scales = vec, val, nrm, scl
+        self.forget_scan()
         self.filter_columns.gather_permute(gather, new_cap)
 
         pks = np.empty(new_cap, dtype=object)

@@ -9,6 +9,13 @@ vector_index_manager.dart:1411-1423), including cosine query normalization
 A slot mask (bool [capacity] tensor on the corpus's device) folds into the
 kernel's bias, so a filtered search costs the same scan.
 
+On K1's route (`ops.topk.flat_route`, chosen on the whole capacity) the
+scan reads only the corpus's live prefix (`ScanState.prefix`): the slots
+past it were never used, so the answer is the whole capacity's, bit for
+bit. On a CUDA corpus that route's bias, K1 and `finalize_results` run as
+one stage through the CUDA graphs of the corpus's `ScanState`
+(ops/graphs.py), keyed by the search's shape and the prefix's tensors.
+
 `run_search` is the one skeleton of a single-device search, the flat
 scan's and the IVF probe's (vector/ivf.py): an index supplies only its
 device work.
@@ -20,8 +27,11 @@ import numpy as np
 import torch
 
 from ..models.results import VectorSearchResult
+from ..ops import _kernels
 from ..ops import distance as D
 from ..ops import topk as T
+from ..ops.graphs import GraphCache
+from ..ops.runtime import ROW_BLOCK, round_up
 from ..utils.spans import span
 from .corpus import DeviceCorpus
 
@@ -113,6 +123,42 @@ def run_search(corpus: DeviceCorpus, metric: str, q, k: int, dispatch, *args,
         return dist, slots, corpus.pks_for_slots(slots)
 
 
+class ScanState:
+    """What the flat scan derives from a corpus's tensors, held as its
+    `DeviceCorpus.scan` (dropped where the corpus replaces them): the views
+    of its live prefix and the CUDA graphs of K1's route over them."""
+
+    def __init__(self):
+        self.graphs = GraphCache()
+        self._prefix = None  # (rows, the tensors cut, their views)
+
+    def prefix(self, c: DeviceCorpus) -> tuple:
+        """(vectors, valid, sq_norms, scales) of `c` cut to the slots a scan
+        on K1's route reads: the high-water mark rounded up to whole K1
+        blocks (ROW_BLOCK), at most the capacity. Slots at and past `_high`
+        were never used: invalid, zero rows. The views are made once per
+        length and set of tensors: cut anew, four tensors cost a search
+        ~4 us of host time."""
+        n = min(c.capacity, round_up(c._high, ROW_BLOCK))
+        got = self._prefix
+        if got is not None and got[0] == n:
+            v, va, nr, sc = got[1]
+            if v is c.vectors and va is c.valid and nr is c.sq_norms and sc is c.scales:
+                return got[2]
+        base = (c.vectors, c.valid, c.sq_norms, c.scales)
+        views = tuple(None if t is None else t[:n] for t in base)
+        self._prefix = (n, base, views)
+        return views
+
+
+def scan_state(c: DeviceCorpus) -> ScanState:
+    """The corpus's `ScanState`, made on first use."""
+    st = c.scan
+    if st is None:
+        st = c.scan = ScanState()
+    return st
+
+
 class FlatVectorIndex:
     """Flat full-scan index: metric in {'cosine','l2','dot'/'innerProduct'}.
 
@@ -168,28 +214,53 @@ class FlatVectorIndex:
     def _prep_queries(self, q: np.ndarray):
         return prep_queries(self.corpus, self.metric, q)
 
-    def _bias_alpha(self, slot_mask: torch.Tensor | None):
+    def _bias_alpha(self, slot_mask: torch.Tensor | None, tensors: tuple | None = None):
         """Per-slot additive bias folding the metric term, tombstones and
         the slot mask; plus the matmul scale alpha and the per-row int8
         dequant factors (sq_norms are stored dequantized, so only the q.e
-        product needs them)."""
+        product needs them). Over `tensors` (vectors, valid, sq_norms,
+        scales), by default the whole corpus's."""
         c = self.corpus
-        valid = c.valid
+        _, valid, sq_norms, scales = tensors or (None, c.valid, c.sq_norms, c.scales)
         if slot_mask is not None:
             valid = torch.logical_and(valid, slot_mask)
-        norms = c.sq_norms if self.metric == "l2" else None
+        norms = sq_norms if self.metric == "l2" else None
         alpha = D.metric_alpha(self.metric)
         bias = D.make_bias(self.metric, norms, valid)
-        return bias, alpha, c.scales
+        return bias, alpha, scales
 
     def _dispatch(self, qt, qsq, k: int, hold, slot_mask: torch.Tensor | None, mode: str):
         """The flat scan's device work for `run_search`: (distances, slots)
-        on the device."""
+        on the device. K1's route reads the live prefix, on a CUDA corpus
+        as one stage of the CUDA graphs of the key (B, k, masked, mode),
+        whose entry's release goes to `hold`; the other routes scan the
+        whole capacity eagerly."""
+        c = self.corpus
+        b = qt.shape[0]
+        if T.flat_route(b, c.vectors.shape, c.dtype, qt.device.type, k, mode) != "k1":
+            return self._scan((c.vectors, c.valid, c.sq_norms, c.scales), mode, k, qt, qsq,
+                              slot_mask)
+        st = scan_state(c)
+        prefix = st.prefix(c)
+        inputs = (qt, qsq) if slot_mask is None else (qt, qsq, slot_mask[: prefix[0].shape[0]])
+        key = (b, k, slot_mask is not None, mode) if qt.is_cuda else None
+        g = st.graphs.stages(key, prefix, *inputs)
+        hold.append(g.release)
+        out = g.run(0, lambda: self._scan(prefix, "fused", k, *g.inputs))
+        if g.graphed:  # counted once the stage ran
+            if g.captures:
+                _kernels.count(T.LAUNCHES, "flat_graph_capture")
+            _kernels.count(T.LAUNCHES, "flat_graph")
+        return out
+
+    def _scan(self, tensors: tuple, mode: str, k: int, qt, qsq, mask=None):
+        """`flat_search` over `tensors` (vectors, valid, sq_norms, scales:
+        the whole corpus's, or its live prefix's with mode 'fused'): the
+        bias (a span, the slot mask ANDed in), the scan, `finalize_results`."""
         with span("vector_search.bias"):
-            bias, alpha, row_scale = self._bias_alpha(slot_mask)
-        scores, idx = T.flat_search(
-            qt, self.corpus.vectors, bias, k=k, alpha=alpha, mode=mode, row_scale=row_scale
-        )
+            bias, alpha, row_scale = self._bias_alpha(mask, tensors)
+        scores, idx = T.flat_search(qt, tensors[0], bias, k=k, alpha=alpha, mode=mode,
+                                    row_scale=row_scale)
         return D.finalize_results(self.metric, scores, idx, qsq)
 
     def search_arrays(self, q: np.ndarray, k: int,

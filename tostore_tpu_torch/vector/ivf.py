@@ -829,6 +829,7 @@ class IVFVectorIndex:
         for attr in ("vectors", "valid", "sq_norms", "scales", "_slot_pks", "_pk_slot",
                      "_free", "_high", "capacity", "filter_columns"):
             setattr(c, attr, getattr(scorp, attr))
+        c.forget_scan()
         c.deleted_count = 0
         for attr in self._LAYOUT_ATTRS:
             setattr(self, attr, getattr(shadow, attr))
