@@ -12,7 +12,10 @@ slot mask; the key's tensor identities (stable under in-place writes and
 appends within a K1 block, new when the high-water mark crosses into
 the next, on growth and on compaction); the old corpus freed wherever the corpus
 replaces its tensors; the counters moving only once a search's stage ran,
-masked searches included; and no graph counter moving on the CPU.
+masked searches included; no graph counter moving on the CPU; and a table
+declared with the schema's defaults (a float32 flat cosine index, 768 wide)
+answering one query a search through `vector_search` on K1's route over the
+prefix, with the exact scan's hits.
 
 On the card (marker `cuda`): replayed answers equal the eager search's and
 a K1 scan of the whole capacity bit for bit at B = 1, 4 and 32, masked
@@ -350,6 +353,71 @@ def test_no_graph_counter_moves_on_the_cpu(small_k1):
         idx.search(x[i], top_k=K, mode="fused")
     assert _graph_counts() == before
     assert len(_graphs(idx)) == 0  # the cache is never given a key on the CPU
+
+
+def _default_table(n, d=768, seed=0):
+    """A memory database on the CPU with one table declared with the
+    schema's defaults: a vector field of no stated precision under a
+    default vector index. Returns (db, rows, rng)."""
+    from tostore_tpu_torch import (DataType, FieldSchema, IndexSchema, TableSchema, ToStoreTPU,
+                                   VectorFieldConfig, VectorIndexConfig)
+
+    schema = TableSchema(name="docs", fields=(
+        FieldSchema("key", DataType.bigInt),
+        FieldSchema("emb", DataType.vector, vector_config=VectorFieldConfig(dimensions=d))),
+        indexes=(IndexSchema(fields=("emb",), type="vector",
+                             vector_config=VectorIndexConfig()),))
+    db = ToStoreTPU.memory(schemas=[schema], device="cpu")
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    res = db.batch_insert("docs", [{"id": i + 1, "key": i, "emb": x[i]} for i in range(n)])
+    assert res.is_success, res
+    return db, x, rng
+
+
+def test_the_schemas_default_table_is_a_float32_flat_cosine_scan():
+    db, x, _ = _default_table(64)
+    try:
+        db.vector_search("docs", "emb", x[0], top_k=1)  # applies the staged rows
+        idx = db.engine._table("docs").vector_index_for("emb")
+        assert isinstance(idx, FlatVectorIndex) and idx.index_type == "flat"
+        assert idx.metric == "cosine" and idx.corpus.dtype == torch.float32
+    finally:
+        db.close()
+
+
+@pytest.mark.parametrize("k", [1, 10])
+def test_the_schemas_default_table_answers_a_query_on_k1_over_the_prefix(small_k1, monkeypatch,
+                                                                          k):
+    """768-wide float32 rows through `vector_search`: one query a search
+    takes K1's route over the live prefix, and its hits are the exact
+    scan's, in order."""
+    db, x, rng = _default_table(5000)
+    try:
+        qs = _queries(rng, x, 4)
+        db.vector_search("docs", "emb", qs[0], top_k=1)
+        idx = db.engine._table("docs").vector_index_for("emb")
+        c = idx.corpus
+        assert _prefix(c)[0].shape[0] == 6144 < c.capacity
+        routes = []
+        real = ttopk.flat_route
+
+        def seen(*a, **kw):
+            routes.append(real(*a, **kw))
+            return routes[-1]
+
+        for q in qs:
+            routes.clear()
+            with monkeypatch.context() as m:
+                m.setattr(ttopk, "flat_route", seen)
+                got = db.vector_search("docs", "emb", q, top_k=k)
+            assert routes and set(routes) == {"k1"}
+            want = idx.search(q, top_k=k, mode="exact")
+            assert [h.primary_key for h in got] == [h.primary_key for h in want]
+            np.testing.assert_allclose([h.distance for h in got], [h.distance for h in want],
+                                       rtol=0, atol=1e-6)
+    finally:
+        db.close()
 
 
 # --------------------------------------------------------------------------

@@ -236,7 +236,7 @@ def _imported_modules(tree):
 
 
 def test_bench_scripts_import_no_jax_or_reference():
-    assert len(SCRIPTS) == 12, SCRIPTS
+    assert len(SCRIPTS) == 13, SCRIPTS
     for path in SCRIPTS:
         tree = ast.parse(path.read_text())
         bad = [m for m in _imported_modules(tree) if m.split(".")[0] in FORBIDDEN]
